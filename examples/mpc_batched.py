@@ -41,4 +41,7 @@ def run(batch_size=16, horizon=3, steps=10):
 
 
 if __name__ == "__main__":
+    from gym_anm_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     run()

@@ -38,5 +38,8 @@ def train_robust(n_variants=4, lanes=64, iterations=10):
 
 
 if __name__ == "__main__":
+    from gym_anm_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     run()
     train_robust()

@@ -13,4 +13,7 @@ def run(iterations=20, batch=256):
 
 
 if __name__ == "__main__":
+    from gym_anm_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     run()

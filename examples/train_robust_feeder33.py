@@ -5,9 +5,9 @@ One policy is trained against G grid variants (nominal + lognormal branch
 impedance jitter) stepped inside a single XLA program — the setup the
 reference cannot express at all (its envs bind one network dict each;
 cf. /root/reference/gym_anm/envs/anm6_env/anm6.py:24-40).  Histories are
-written as JSON so reward curves can be recorded in RESULTS.md.
+written as JSON so reward curves can be compared across runs.
 
-Run on the chip:  python -u examples/train_robust_feeder33.py --algo ppo
+Run on a GPU:  python -u examples/train_robust_feeder33.py --algo ppo
 """
 
 import argparse
@@ -61,6 +61,9 @@ def _report(algo, history, env_steps, elapsed, out):
 
 
 if __name__ == "__main__":
+    from gym_anm_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="ppo", choices=["ppo", "sac", "both"])
     ap.add_argument("--iterations", type=int, default=150)

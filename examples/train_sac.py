@@ -1,7 +1,7 @@
 """Train a SAC agent on batched ANM6Easy environments, fully on device.
 
 Off-policy counterpart to ``train_ppo.py``: the replay buffer lives on the
-TPU and each iteration (environment collection + gradient updates) is one
+device and each iteration (environment collection + gradient updates) is one
 jitted program.
 """
 import jax
@@ -22,4 +22,7 @@ def run(iterations=20, batch=256):
 
 
 if __name__ == "__main__":
+    from gym_anm_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     run()

@@ -26,4 +26,7 @@ def run(num_envs=256, steps=200):
 
 
 if __name__ == "__main__":
+    from gym_anm_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     run()

@@ -1,11 +1,11 @@
-"""On-chip trajectory-parity harness.
+"""On-device trajectory-parity harness.
 
-Every headline perf number rests on f32 TPU solver paths; this module gives
-them a *non-vacuous on-device correctness check*: fixed initial states,
-fixed actions, and fixed internal variables are committed to the repo
-together with the host-float64 trajectory they produce, and ``bench.py
---check`` replays the identical inputs through each on-chip solver path
-(pallas / scan / hybrid / fused ...) comparing states, rewards and
+Every headline perf number rests on f32 solver paths on the accelerator;
+this module gives them a *non-vacuous on-device correctness check*: fixed
+initial states, fixed actions, and fixed internal variables are committed
+to the repo together with the host-float64 trajectory they produce, and
+``bench.py --check`` replays the identical inputs through a solver path on
+the device (tree / scan / hybrid) comparing states, rewards and
 termination decisions step by step.
 
 Matches the reference's invariant-test strategy
@@ -16,7 +16,7 @@ invariants.
 Design notes:
 
 * All inputs (s0, actions, vars) are stored at float32 precision so host
-  and chip consume *bit-identical* values -- the comparison then isolates
+  and device consume *bit-identical* values -- the comparison then isolates
   the physics path (projection + power flow + reward), not input rounding.
 * Internal variables are pre-recorded from the host rollout and replayed
   verbatim (``EnvCore.step(es, action, vars)``), so stochastic tasks
@@ -44,7 +44,7 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 
 # Per-env check configuration: sizes, action scaling (calibrated so the
 # final terminated_frac is in [0.2, 0.8] -- see scripts/gen_onchip_refs.py),
-# and which solver paths to verify on chip.
+# and which solver paths to verify on the device.
 CHECK_CONFIG = {
     # method -> make_core kwargs (the calibrated budgets bench.py uses).
     "anm6easy": dict(
@@ -52,25 +52,20 @@ CHECK_CONFIG = {
         T=64,
         seed=0,
         action_scale=1.0,
-        methods={"pallas": {}, "scan": {}, "hybrid": {"pf_max_iter": 6}, "fused": {}, "tree": {}},
+        methods={"scan": {}, "hybrid": {}, "tree": {}},
     ),
     # ``stress``: the recorded loads are ramped up to (1 + stress)x by the
     # final step, sweeping lanes across the collapse boundary during the
     # trajectory -- legitimate because the (stressed) vars are replayed
-    # bit-identically on host and chip; uniform-random actions alone cannot
+    # bit-identically on host and device; uniform-random actions alone cannot
     # collapse these stiff feeders within a committable horizon.
-    # B=128: the smallest batch that engages the real Pallas NR kernel at 33
-    # buses (lane tile 128; smaller batches silently fall back to XLA).
-    "feeder33": dict(
-        B=128, T=24, seed=0, action_scale=1.0, stress=1.5,
-        methods={"tree": {}, "hybrid": {}, "pallas": {}},
-    ),
+    "feeder33": dict(B=128, T=24, seed=0, action_scale=1.0, stress=1.5, methods={"tree": {}, "hybrid": {}}),
     # feeder141 is feasible-by-construction at full load (branch ratings are
     # sized from downstream subtree peaks and loads clip at p_min -- see
     # envs/feeder141.py), so no legal input collapses it: stress=2 saturates
     # every load at its bound (the worst legal case), terminated_frac stays
-    # 0, and the check's signal is pure state/reward parity of the
-    # chord-only f32 path against per-lane NR f64.
+    # 0, and the check's signal is pure state/reward parity of the f32
+    # solver against per-lane NR f64.
     "feeder141": dict(B=64, T=16, seed=0, action_scale=1.0, stress=2.0, methods={"tree": {}}),
 }
 
@@ -157,7 +152,7 @@ def rollout_given(core, s0, actions, vars_seq):
 
 
 def compare_trajectories(ref, got, term_tol=0.02, state_tol=5e-3, reward_tol=5e-3):
-    """Step-by-step comparison of a chip trajectory against the committed
+    """Step-by-step comparison of a device trajectory against the committed
     host-f64 reference.
 
     ref/got: dicts with state_vec [T, B, n], reward [T, B], terminated
@@ -218,8 +213,9 @@ def load_reference(env_name: str) -> dict:
 
 
 def run_check(env_name: str, make_core, methods=None, term_tol=0.02, state_tol=5e-3, reward_tol=5e-3) -> dict:
-    """Replay the committed trajectory through each on-chip solver path and
-    compare.  Returns {method: comparison_dict, "pass": all_passed}."""
+    """Replay the committed trajectory through each solver path on the
+    default device and compare.  Returns {method: comparison_dict, "pass":
+    all_passed}."""
     data = load_reference(env_name)
     cfg = CHECK_CONFIG[env_name]
     methods = dict(methods) if methods is not None else dict(cfg["methods"])
@@ -244,3 +240,75 @@ def run_check(env_name: str, make_core, methods=None, term_tol=0.02, state_tol=5
         all_ok = all_ok and res["pass"]
     out["pass"] = all_ok
     return out
+
+
+def random_injections(core, B: int, seed: int = 0):
+    """Non-slack bus injections ``(p, q)`` [B, n_bus - 1] (p.u., the core's
+    dtype) as one step of the task would hand them to the power flow:
+    initial states from the task's distribution, uniform-random actions,
+    set-points projected onto the devices' operating regions.  Host NumPy,
+    for comparing solvers on the same inputs."""
+    from .core.transition import _map_set_points
+
+    spec = core.spec
+    dt = spec.dtype
+    base = spec.baseMVA
+    k_s0, k_act = jax.random.split(jax.random.PRNGKey(seed))
+    s0 = jax.vmap(core.init_state_fn)(jax.random.split(k_s0, B))
+    lo = jnp.asarray(core.action_low, dt)
+    hi = jnp.asarray(core.action_high, dt)
+    a = (lo + (hi - lo) * jax.random.uniform(k_act, (B, core.action_n), dt)) / base
+    n_gen, n_des, d = spec.n_gen, spec.n_des, spec.n_dev
+    P_dev = s0[:, :d] / base
+    P_pot = s0[:, 2 * d + n_des : 2 * d + n_des + n_gen] / base
+    soc = s0[:, 2 * d : 2 * d + n_des] / base
+    dev_p, dev_q, _, _ = _map_set_points(
+        spec, soc, P_dev[:, spec.load_pos], P_pot, a[:, :n_gen], a[:, n_gen : 2 * n_gen],
+        a[:, 2 * n_gen : 2 * n_gen + n_des], a[:, 2 * n_gen + n_des :],
+    )
+    inc = np.asarray(spec.inc_bus_dev, np.float64)
+    p = np.asarray(dev_p, np.float64) @ inc.T
+    q = np.asarray(dev_q, np.float64) @ inc.T
+    return p[:, 1:].astype(dt), q[:, 1:].astype(dt)
+
+
+# Tolerances of one power-flow solver against another on the same
+# injections (the CUDA tree kernel against the XLA tree solver in float32 and
+# the float64 walk; chip_smoke.py, tests/test_tree_cuda.py):
+#  * |dV| <= SOLVE_DV_TOL p.u. on lanes both call converged and whose
+#    voltages stay >= SOLVE_V_FLOOR p.u.: NR stops once the mismatch is
+#    <= x_tol, which leaves a voltage error of about x_tol times the norm of
+#    the inverse Jacobian -- a few x_tol in the operating region, unbounded
+#    as a lane nears voltage collapse (~0.5 p.u.).  Lanes below the floor
+#    are held to the convergence flags only; their |dV| is reported.
+#  * convergence flags differ on <= SOLVE_FLAG_TOL of lanes: only lanes
+#    whose final mismatch sits within float32 rounding of x_tol may flip;
+#  * iteration counts within +-1 on >= SOLVE_IT_SHARE of lanes both
+#    converged: a lane whose mismatch plateaus at the float32 noise floor
+#    near x_tol crosses it at a rounding-dependent iteration.
+SOLVE_DV_TOL, SOLVE_V_FLOOR, SOLVE_FLAG_TOL, SOLVE_IT_SHARE = 1e-4, 0.8, 1e-3, 0.99
+
+
+def compare_solves(got, ref, x_tol) -> dict:
+    """Compare two solves ``(v_re, v_im, diff, n_iter)`` (``[B, n]``,
+    ``[B, n]``, ``[B]``, ``[B]``) at the tolerances above."""
+    vr, vi, diff, it = (np.asarray(x) for x in got)
+    rvr, rvi, rdiff, rit = (np.asarray(x) for x in ref)
+    c, rc = diff <= x_tol, rdiff <= x_tol
+    both = c & rc
+    dv = np.maximum(np.abs(vr - rvr), np.abs(vi - rvi)).max(axis=-1) if vr.size else np.zeros(0)
+    with np.errstate(invalid="ignore"):
+        in_region = np.hypot(rvr, rvi).min(axis=-1) >= SOLVE_V_FLOOR
+    dv_region = float(dv[both & in_region].max()) if (both & in_region).any() else 0.0
+    dv_all = float(dv[both].max()) if both.any() else 0.0
+    flag = float((c != rc).mean()) if c.size else 0.0
+    dit = np.abs(it.astype(np.int64) - rit.astype(np.int64))[both]
+    it_share = float((dit <= 1).mean()) if dit.size else 1.0
+    return {
+        "max_dV": dv_region,
+        "max_dV_below_floor": dv_all,
+        "flag_mismatch": flag,
+        "iters_within_1": it_share,
+        "max_dit": int(dit.max()) if dit.size else 0,
+        "pass": bool(dv_region <= SOLVE_DV_TOL and flag <= SOLVE_FLAG_TOL and it_share >= SOLVE_IT_SHARE),
+    }

@@ -135,7 +135,6 @@ class EnvCore:
         chord_precision=None,
         stochastic_vars: bool = True,
         reset_attempts: int = 10,
-        nr_pivot: bool = False,
         warm_start: bool = False,
     ):
         self.spec = spec
@@ -152,18 +151,10 @@ class EnvCore:
         self.max_iter = max_iter
         self.pf_method = pf_method
         self.chord_iters = int(chord_iters)
-        # Matmul precision of the XLA chord phase's J0inv @ F update (None
-        # -> ops.power_flow.CHORD_PRECISION); "default" trades bf16 input
-        # truncation for 1-pass MXU products on chord-dominated solves
-        # (see solve_pfe docstring; +30% measured on feeder141 (RESULTS.md round 2)).
+        # Matmul precision of the chord phase's J0inv @ F update (None ->
+        # ops.power_flow.CHORD_PRECISION, i.e. HIGHEST); "default" lets
+        # the product round its inputs (TF32 on GPU tensor cores).
         self.chord_precision = chord_precision
-        # Partial pivoting in the Pallas NR elimination.  False (default)
-        # halves the elimination cost (+34% ANM6Easy / +107% feeder33
-        # end-to-end, zero termination mismatches on the on-chip parity
-        # check -- RESULTS.md round 3); correctness stays guarded by the
-        # mismatch criterion (ops/pallas_nr.nr_core).  True restores the
-        # reference-faithful pivoted elimination (scipy spsolve pivots).
-        self.nr_pivot = bool(nr_pivot)
         # Warm-start each step's power flow from the previous step's solved
         # bus voltages (per-lane best-of-{warm, flat} start; reborn and
         # absorbing lanes flat-start; the convergence decision is untouched
@@ -171,11 +162,6 @@ class EnvCore:
         # every solve (solve_load_flow.py:42; docs/quirks.md); the payoff
         # is a smaller calibrated iteration budget per env.
         self.warm_start = bool(warm_start)
-        if self.warm_start and pf_method in ("fused", "fused_hybrid"):
-            raise ValueError(
-                "warm_start is not supported on the fused whole-transition kernel "
-                "(pf_method=%r); use 'pallas'/'hybrid'/'tree'" % (pf_method,)
-            )
         # False => next_vars_fn ignores its PRNG key (deterministic process),
         # letting the batched path skip per-lane key splitting.
         self.stochastic_vars = stochastic_vars
@@ -336,7 +322,6 @@ class EnvCore:
             pf_method=self.pf_method,
             chord_iters=self.chord_iters,
             chord_precision=self.chord_precision,
-            nr_pivot=self.nr_pivot,
             v_init=(es.sim.bus_v_re, es.sim.bus_v_im) if self.warm_start else None,
         )
 
@@ -404,7 +389,6 @@ class EnvCore:
             pf_method=self.pf_method,
             chord_iters=self.chord_iters,
             chord_precision=self.chord_precision,
-            nr_pivot=self.nr_pivot,
         )
         aux = s0[..., 2 * spec.n_dev + spec.n_des + spec.n_gen :]
         terminated = ~sim.pfe_converged

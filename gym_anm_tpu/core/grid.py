@@ -628,9 +628,8 @@ class GridSpec:
     slack_bus_id: int = dataclasses.field(metadata=dict(static=True))
 
     # --- bus arrays (internal order; slack first) ---
-    # Complex quantities are stored as (re, im) real pairs: TPU runtimes
-    # have patchy complex support, and the real form maps Y*V onto plain
-    # f32 matmuls.
+    # Complex quantities are stored as (re, im) real pairs: the real form
+    # maps Y*V onto plain real matmuls.
     Y_re: jax.Array  # [n, n] Re of the nodal admittance matrix
     Y_im: jax.Array  # [n, n] Im of the nodal admittance matrix
     bus_baseKV: jax.Array  # [n]

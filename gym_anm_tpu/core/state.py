@@ -5,7 +5,7 @@ objects plus the nested ``{quantity: {unit: {id: value}}}`` state dict
 (``simulator.py:551-636``) with a flat array-of-structs pytree that jits,
 vmaps and shards.  All electrical quantities are stored once, in per-unit /
 radians, in internal ordering; complex quantities are stored as (re, im)
-real pairs (TPU runtimes have patchy complex support); unit conversions and
+real pairs (plain real arithmetic on every backend); unit conversions and
 ID-keyed dict views are pure functions of this pytree (see
 :mod:`gym_anm_tpu.core.obs` and the Simulator facade).
 """

@@ -1,6 +1,6 @@
 """The pure-functional physics transition.
 
-TPU-native equivalent of ``Simulator.transition`` (simulator.py:464-537) and
+JAX equivalent of ``Simulator.transition`` (simulator.py:464-537) and
 ``Simulator.reset`` (simulator.py:225-293):
 
 1. map requested device set-points onto feasible (P, Q) injections
@@ -23,9 +23,9 @@ complex quantities are (re, im) real pairs.
 
 Every function supports an optional leading batch axis on its dynamic
 inputs (``[B, ...]``): the batch then executes natively -- bus aggregation
-and I = YV become [B, n] matmuls, and the NR solver runs its batch-last
-lane layout -- rather than through ``vmap``, which would strand the TPU's
-128-wide vector lanes on the tiny per-network dimensions.
+and I = YV become [B, n] matmuls, and the NR solvers run their batch-last
+lane layouts -- rather than through ``vmap`` over the tiny per-network
+dimensions.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.power_flow import cmul, solve_pfe
-from ..ops.projection import project_polytope, project_polytope_lanes
+from ..ops.projection import project_polytope_lanes
 from .grid import GridSpec, POLY_ROW_P_CAP, POLY_ROW_P_FLOOR
 from .state import SimState
 
@@ -78,95 +78,36 @@ def compute_branch_flows(spec: GridSpec, v_re, v_im):
     return if_re, if_im, it_re, it_im, p_from, q_from, p_to, q_to, s_max
 
 
-def pallas_tile_budget(n_bus: int):
-    """Lane tiles whose [2m, 2m+1, tile] elimination buffer fits ~4 MB VMEM."""
-    m2 = 2 * (n_bus - 1)
-    return [t for t in (512, 256, 128) if m2 * (m2 + 1) * t * 4 <= 4 * 2**20]
+PF_METHODS = ("scan", "while", "hybrid", "tree", "tree_xla")
 
 
-def pallas_nr_applies(spec: GridSpec, p_in) -> bool:
-    """True when the fused Pallas NR kernel handles this solve: TPU backend,
-    a single [B, m] f32 batch with B a multiple of a VMEM-feasible lane
-    tile.  Shared by :func:`transition` and bench.py (which must know which
-    solver actually ran to report e.g. ``chord_precision`` honestly)."""
-    import jax
+def resolve_solver_path(spec: GridSpec, pf_method: str, des_soc, P_load, *more) -> str:
+    """The power-flow implementation :func:`transition` dispatches to.
 
-    # No jnp.asarray: p_in may be a host probe array (bench.py) and must
-    # not become an eager device transfer; ndim/dtype exist on both.
-    return (
-        jax.default_backend() == "tpu"
-        and p_in.ndim == 2
-        and p_in.dtype == jnp.float32
-        and any(p_in.shape[0] % t == 0 for t in pallas_tile_budget(spec.n_bus))
-    )
+    One of ``"cuda_tree"`` (the CUDA tree-NR kernel, ops/tree_cuda.py:
+    ``pf_method="tree"`` on a GPU in float32), ``"xla_tree"`` (the XLA
+    level sweep of ops/tree_nr.py: ``"tree"`` elsewhere, or pinned by
+    ``"tree_xla"``) or ``"xla"`` (the dense scan/while/hybrid solver of
+    ops/power_flow.py).  :func:`transition` routes through this function
+    and bench.py reports it, so the two cannot drift apart.
 
-
-def resolve_solver_path(spec: GridSpec, pf_method: str, des_soc, P_load, *more):
-    """The solver implementation :func:`transition` will dispatch to.
-
-    Returns ``(path, effective_pf_method, fused_tile)`` with ``path`` one of
-    ``"fused_kernel"`` (whole-transition Pallas kernel),
-    ``"pallas_nr"`` (fused NR kernel), ``"xla_tree"`` (tree-structured
-    block elimination for radial networks, ops/tree_nr.py), or ``"xla"``
-    (scan/while/chord solver); ``effective_pf_method`` is ``pf_method``
-    after any fused-> pallas/hybrid downgrade.  This is the **single source of truth** for the
-    dispatch: :func:`transition` itself routes through it, and bench.py
-    imports it for honest solver-dependent reporting -- the accounting can
-    no longer drift from the real dispatch (it IS the real dispatch).
-
-    Only shapes/dtypes of ``des_soc``/``P_load`` are read, so host probes
-    (numpy arrays or ``jax.ShapeDtypeStruct``) work: pass e.g.
-    ``np.zeros((B, spec.n_des), spec.dtype)`` to predict the path for a
-    batch size without tracing anything.
+    Only shapes/dtypes of ``des_soc``/``P_load``/``more`` are read, so host
+    probes (NumPy arrays or ``jax.ShapeDtypeStruct``) work without tracing.
     """
-    import jax
+    if pf_method not in PF_METHODS:
+        raise ValueError("pf_method=%r; expected one of %s" % (pf_method, PF_METHODS))
+    if pf_method == "tree_xla":
+        return "xla_tree"
+    if pf_method == "tree":
+        import jax
 
-    eff = pf_method
-    if eff == "tree_xla":
-        # The tree elimination pinned to the XLA path (ablation mode).
-        return "xla_tree", eff, None
-    if eff == "tree":
-        from ..ops import pallas_tree
-
-        if jax.default_backend() == "tpu" or pallas_tree.FORCE_INTERPRET:
-            arrs = (des_soc, P_load) + more
-            bs = np.broadcast_shapes(*(np.shape(a)[:-1] for a in arrs))
-            dts = [np.dtype(spec.dtype)] + [
-                np.dtype(a.dtype) for a in arrs if getattr(a, "dtype", None) is not None
-            ]
-            if len(bs) == 1 and np.result_type(*dts) == np.float32:
-                sched = pallas_tree.schedule_for_spec(spec)
-                if sched is not None and any(
-                    bs[0] % t == 0 for t in pallas_tree.tree_tile_budget(sched)
-                ):
-                    return "pallas_tree", eff, None
-        return "xla_tree", eff, None
-    if eff in ("fused", "fused_hybrid"):
-        from ..ops import pallas_step
-
-        tile = None
-        if (jax.default_backend() == "tpu" or pallas_step.FORCE_INTERPRET) and isinstance(
-            spec.Y_re, np.ndarray
-        ):
-            tile = pallas_step.fused_transition_supported(spec, des_soc, P_load)
-        if tile is not None:
-            return "fused_kernel", eff, tile
-        eff = "pallas" if eff == "fused" else "hybrid"
-    if eff in ("pallas", "hybrid"):
-        # Probe of the p_in the NR solver will see: [*batch, n_bus - 1] in
-        # the dtype the injection pipeline produces (spec.dtype unless a
-        # caller feeds wider inputs, which promote through the einsum).
-        # ``more`` holds any further set-point arrays whose leading dims
-        # contribute to the broadcast batch shape.
-        arrs = (des_soc, P_load) + more
-        bs = np.broadcast_shapes(*(np.shape(a)[:-1] for a in arrs))
         dts = [np.dtype(spec.dtype)] + [
-            np.dtype(a.dtype) for a in arrs if getattr(a, "dtype", None) is not None
+            np.dtype(a.dtype) for a in (des_soc, P_load) + more if getattr(a, "dtype", None) is not None
         ]
-        probe = jax.ShapeDtypeStruct(tuple(bs) + (spec.n_bus - 1,), np.result_type(*dts))
-        if pallas_nr_applies(spec, probe):
-            return "pallas_nr", eff, None
-    return "xla", eff, None
+        if jax.default_backend() == "gpu" and np.result_type(*dts) == np.float32:
+            return "cuda_tree"
+        return "xla_tree"
+    return "xla"
 
 
 def _map_set_points(spec: GridSpec, des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des):
@@ -192,36 +133,21 @@ def _map_set_points(spec: GridSpec, des_soc, P_load, P_pot, P_set_gen, Q_set_gen
         jnp.where(rows == POLY_ROW_P_FLOOR, charge_cap[..., :, None], spec.des_h0),
     )
 
-    # One batched exact projection for all controllable devices.  On TPU
-    # use the lane-major hot path (static normals, batch innermost, one
-    # candidate at a time with a running minimum); elsewhere the vectorized
-    # candidate-tensor form compiles much faster and runtime is irrelevant.
-    import jax
-
+    # One batched exact projection for all controllable devices.
     C = spec.n_gen + spec.n_des
     h = jnp.concatenate([gen_h, des_h], axis=-2)  # [..., C, m]
     m = h.shape[-1]
     G_static = np.concatenate([np.asarray(spec.gen_G), np.asarray(spec.des_G)], axis=0)
     p_pts = jnp.concatenate([P_set_gen, P_set_des], axis=-1).astype(dt)  # [..., C]
     q_pts = jnp.concatenate([Q_set_gen, Q_set_des], axis=-1).astype(dt)
-    if jax.default_backend() == "tpu":
-        bs = h.shape[:-2]
-        B = int(np.prod(bs)) if bs else 1
-        px = jnp.moveaxis(p_pts.reshape((B, C)), 0, -1)  # [C, B]
-        py = jnp.moveaxis(q_pts.reshape((B, C)), 0, -1)
-        hL = jnp.moveaxis(h.reshape((B, C, m)), 0, -1)  # [C, m, B]
-        # Benchmarked alternatives (scripts/proj_bench.py): the candidate-
-        # stacked and box+slants forms are exact too, but measure equal or
-        # slower end-to-end on the current TPU runtime -- the running-min
-        # form stays the default.
-        x, y = project_polytope_lanes(px, py, G_static, hL)
-        proj_p = jnp.moveaxis(x, -1, 0).reshape(bs + (C,))
-        proj_q = jnp.moveaxis(y, -1, 0).reshape(bs + (C,))
-    else:
-        pts = jnp.stack([p_pts, q_pts], axis=-1)  # [..., C, 2]
-        G_b = jnp.broadcast_to(jnp.asarray(G_static, dtype=dt), h.shape + (2,))
-        proj = project_polytope(pts, G_b, h)
-        proj_p, proj_q = proj[..., 0], proj[..., 1]
+    bs = h.shape[:-2]
+    B = int(np.prod(bs)) if bs else 1
+    px = jnp.moveaxis(p_pts.reshape((B, C)), 0, -1)  # [C, B]
+    py = jnp.moveaxis(q_pts.reshape((B, C)), 0, -1)
+    hL = jnp.moveaxis(h.reshape((B, C, m)), 0, -1)  # [C, m, B]
+    x, y = project_polytope_lanes(px, py, G_static, hL)
+    proj_p = jnp.moveaxis(x, -1, 0).reshape(bs + (C,))
+    proj_q = jnp.moveaxis(y, -1, 0).reshape(bs + (C,))
     gen_p, gen_q = proj_p[..., : spec.n_gen], proj_q[..., : spec.n_gen]
     des_p, des_q = proj_p[..., spec.n_gen :], proj_q[..., spec.n_gen :]
 
@@ -234,8 +160,7 @@ def _map_set_points(spec: GridSpec, des_soc, P_load, P_pot, P_set_gen, Q_set_gen
     new_soc = jnp.clip(new_soc, spec.des_soc_min, spec.des_soc_max)
 
     # Assemble full device injection vectors (slack initialized to 0,
-    # simulator.py:520-523) via a static permutation gather -- XLA scatters
-    # are slow on TPU, a fixed-index gather is a relayout.
+    # simulator.py:520-523) via a static permutation gather.
     bs = jnp.broadcast_shapes(load_p.shape[:-1], gen_p.shape[:-1], des_p.shape[:-1])
     concat_order = np.concatenate(
         [[int(spec.slack_pos)], np.asarray(spec.load_pos), np.asarray(spec.gen_pos), np.asarray(spec.des_pos)]
@@ -284,7 +209,6 @@ def transition(
     pf_method="scan",
     chord_iters=16,
     chord_precision=None,
-    nr_pivot=False,
     v_init=None,
 ) -> TransitionResult:
     """One physics transition (simulator.py:464-537). All inputs in p.u.
@@ -301,23 +225,15 @@ def transition(
         Generator set-points.
     P_set_des, Q_set_des : [n_des]
         Storage set-points.
-    pf_method : {"scan", "while", "pallas", "hybrid", "xla_hybrid", "tree", "tree_xla", "fused", "fused_hybrid"}
-        NR loop style; "hybrid" prepends ``chord_iters`` constant-Jacobian
-        chord iterations (matmul-only) before ``max_iter`` true-NR
-        iterations, on both the Pallas and XLA paths; "xla_hybrid" is the
-        same solver pinned to the XLA path (MXU chord matmuls, honors
-        ``chord_precision``) even where the Pallas kernel applies.
+    pf_method : {"scan", "while", "hybrid", "tree", "tree_xla"}
+        Power-flow solver.  "scan"/"while" run dense per-lane NR (masked
+        fixed-budget scan / early-exit while loop); "hybrid" prepends
+        ``chord_iters`` constant-Jacobian chord iterations (matmul-only,
+        at ``chord_precision``) before ``max_iter`` true-NR iterations.
         "tree" runs true per-lane NR with the tree-structured block
-        elimination (radial networks only; O(n) per-lane solves --
-        ops/tree_nr.py), the scalable exact path at feeder141 size; on
-        TPU with aligned f32 batches it dispatches to the fused VMEM
-        kernel (ops/pallas_tree.py), and "tree_xla" pins the XLA level
-        sweep for ablation.
-        "fused" / "fused_hybrid" run the *entire* transition (projection,
-        SoC, bus aggregation, NR, branch flows, reward terms) as one
-        Pallas kernel (ops/pallas_step.py) on the TPU fast path --
-        identical math, falling back to "pallas" / "hybrid" when the
-        kernel doesn't apply.
+        elimination (radial networks only; O(n) per-lane solves): on a
+        GPU in float32 as the CUDA kernel of ops/tree_cuda.py, elsewhere
+        as the XLA level sweep of ops/tree_nr.py, which "tree_xla" pins.
     v_init : None or (bus_v_re, bus_v_im) with leading batch dims
         Optional warm start for the power-flow solve, e.g. the previous
         step's solved voltages (``SimState.bus_v_re/im``).  Per lane the
@@ -325,122 +241,30 @@ def transition(
         smaller true mismatch; absorbing/reborn lanes (zero or
         out-of-window voltages) flat-start automatically, and the
         convergence decision is unchanged (true mismatch at ``x_tol``).
-        Unsupported on the fused whole-transition kernel.
     """
     import jax
 
-    solver_path, pf_method, fused_tile = resolve_solver_path(
+    solver_path = resolve_solver_path(
         spec, pf_method, des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des
     )
-    if solver_path == "fused_kernel":
-        if v_init is not None:
-            raise ValueError(
-                "warm starts (v_init) are not supported on the fused whole-transition "
-                "kernel; use pf_method='pallas'/'hybrid'/'tree' for warm-started solves"
-            )
-        from ..ops import pallas_step
-        from ..ops.power_flow import flat_start_jacobian_inv_np
-
-        J0inv = flat_start_jacobian_inv_np(spec.Y_re, spec.Y_im, dtype=spec.dtype)
-        o = pallas_step.fused_transition(
-            spec,
-            des_soc,
-            P_load,
-            P_pot,
-            P_set_gen,
-            Q_set_gen,
-            P_set_des,
-            Q_set_des,
-            J0inv,
-            x_tol=x_tol,
-            max_iter=max_iter,
-            chord_iters=chord_iters if pf_method == "fused_hybrid" else 0,
-            tile=fused_tile,
-            pivot=nr_pivot,
-        )
-        diff = o.diff[..., 0]
-        converged = diff <= x_tol
-        e_loss = o.e_loss[..., 0]
-        penalty = o.penalty[..., 0]
-        state = SimState(
-            dev_p=o.dev_p,
-            dev_q=o.dev_q,
-            des_soc=o.soc_new,
-            gen_p_pot=o.p_pot,
-            bus_v_re=o.v_re,
-            bus_v_im=o.v_im,
-            bus_i_re=o.i_re,
-            bus_i_im=o.i_im,
-            bus_p=o.bus_p,
-            bus_q=o.bus_q,
-            br_if_re=o.if_re,
-            br_if_im=o.if_im,
-            br_it_re=o.it_re,
-            br_it_im=o.it_im,
-            br_p_from=o.p_from,
-            br_q_from=o.q_from,
-            br_p_to=o.p_to,
-            br_q_to=o.q_to,
-            br_s=o.s_max,
-            pfe_converged=converged,
-        )
-        return TransitionResult(state, -(e_loss + penalty), e_loss, penalty, converged)
-
     dev_p, dev_q, new_soc, p_pot = _map_set_points(
         spec, des_soc, P_load, P_pot, P_set_gen, Q_set_gen, P_set_des, Q_set_des
     )
 
     # Bus aggregation as a static incidence matmul (simulator.py:539-549).
-    # precision: TPU default matmul precision truncates inputs to bf16
-    # (~0.4% relative); the NR iteration is self-correcting under that, but
-    # these one-shot aggregations/gathers are not -- they feed rewards,
-    # bounds checks and observations directly (caught by bench.py --check:
-    # max_state_div 1.1e-2 -> 3e-5 at HIGHEST, at no measurable cost).
+    # precision: a default-precision float32 matmul may round its inputs
+    # (TF32 on GPU tensor cores, ~1e-3 relative); the NR iteration is
+    # self-correcting under that, but these one-shot aggregations are not
+    # -- they feed rewards, bounds checks and observations directly -- so
+    # every product on the step path is pinned to HIGHEST.
     _HI = jax.lax.Precision.HIGHEST
     bus_p = jnp.einsum("nd,...d->...n", spec.inc_bus_dev, dev_p, precision=_HI)
     bus_q = jnp.einsum("nd,...d->...n", spec.inc_bus_dev, dev_q, precision=_HI)
 
-    # Newton-Raphson load flow; slack bus is internal index 0.  The fused
-    # Pallas kernel handles aligned f32 batches on TPU; everything else
-    # falls back to the XLA scan/while solver (identical semantics).
+    # Newton-Raphson load flow; slack bus is internal index 0.
     p_in, q_in = bus_p[..., 1:], bus_q[..., 1:]
-    use_pallas = solver_path == "pallas_nr"
-    assert use_pallas == (pf_method in ("pallas", "hybrid") and pallas_nr_applies(spec, p_in)), (
-        "resolve_solver_path's probe disagrees with the real p_in dispatch "
-        "condition -- the shared dispatch drifted (core/transition.py)"
-    )
-    if use_pallas and chord_precision is not None:
-        import warnings
-
-        # The Pallas kernel's chord products are exact-f32 broadcast-sums
-        # inside VMEM (ops/pallas_nr.py ``chord_body``); the XLA matmul
-        # precision knob does not reach them.
-        warnings.warn(
-            "chord_precision=%r has no effect on the Pallas NR path (its chord "
-            "products are exact-f32 VPU sums); it only applies to the XLA "
-            "hybrid/chord solver (e.g. feeder141, CPU, or --pf scan)." % (chord_precision,),
-            stacklevel=2,
-        )
-    # The flat-start Jacobian inverse is a pure function of the (static,
-    # NumPy) admittance matrix: invert on the host at trace time so it
-    # folds into the program as a constant instead of an LU solve that
-    # would re-run inside every scan step (ops/power_flow.py docstring).
-    J0inv = None
-    if isinstance(spec.Y_re, np.ndarray) and isinstance(spec.Y_im, np.ndarray):
-        from ..ops.power_flow import flat_start_jacobian_inv_np
-
-        J0inv = flat_start_jacobian_inv_np(spec.Y_re, spec.Y_im, dtype=spec.dtype)
-    if solver_path == "pallas_tree":
-        from ..ops import pallas_tree
-
-        sched = pallas_tree.schedule_for_spec(spec)
-        B = p_in.shape[0]
-        tile = next(t for t in pallas_tree.tree_tile_budget(sched) if B % t == 0)
-        v_re, v_im, _, _, converged = pallas_tree.solve_pfe_tree_pallas(
-            sched, p_in, q_in, x_tol=x_tol, max_iter=max_iter, tile=tile, init=v_init
-        )
-    elif solver_path == "xla_tree":
-        from ..ops.tree_nr import build_tree_info, solve_pfe_tree
+    if solver_path in ("cuda_tree", "xla_tree"):
+        from ..ops.tree_nr import build_tree_info
 
         if not (isinstance(spec.Y_re, np.ndarray) and isinstance(spec.br_f, np.ndarray)):
             raise ValueError("pf_method='tree' needs a static (NumPy-leaf) GridSpec")
@@ -450,28 +274,29 @@ def transition(
                 "pf_method='tree' requires a radial network (a tree rooted at the "
                 "slack bus); this network is meshed or disconnected"
             )
-        v_re, v_im, _, _, converged = solve_pfe_tree(
-            tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter, init=v_init
-        )
-    elif use_pallas:
-        from ..ops.pallas_nr import solve_pfe_pallas
+        if solver_path == "cuda_tree":
+            from ..ops.tree_cuda import pack_schedule, solve_pfe_tree_cuda
 
-        B = p_in.shape[0]
-        tile = next(t for t in pallas_tile_budget(spec.n_bus) if B % t == 0)
-        v_re, v_im, _, _, converged = solve_pfe_pallas(
-            spec.Y_re, spec.Y_im, p_in, q_in, x_tol=x_tol, max_iter=max_iter, tile=tile,
-            chord_iters=chord_iters if pf_method == "hybrid" else 0, J0inv=J0inv, pivot=nr_pivot,
-            init=v_init,
-        )
+            v_re, v_im, _, _, converged = solve_pfe_tree_cuda(
+                pack_schedule(tree), p_in, q_in, x_tol=x_tol, max_iter=max_iter, init=v_init
+            )
+        else:
+            from ..ops.tree_nr import solve_pfe_tree
+
+            v_re, v_im, _, _, converged = solve_pfe_tree(
+                tree, p_in, q_in, x_tol=x_tol, max_iter=max_iter, init=v_init
+            )
     else:
-        # "xla_hybrid" = the chord(+NR-tail) solver forced onto the XLA path
-        # even where the Pallas kernel applies: its chord update is a real
-        # MXU matmul ([2m, 2m] x [2m, B], optionally bf16 via
-        # chord_precision) instead of the kernel's exact-f32 VPU sums --
-        # the faster choice for chord-dominated solves at >= ~33 buses.
-        method = {"pallas": "scan", "xla_hybrid": "hybrid"}.get(pf_method, pf_method)
+        # The flat-start Jacobian inverse of the chord phase is a pure
+        # function of the (static, NumPy) admittance matrix: invert on the
+        # host at trace time so it folds into the program as a constant.
+        J0inv = None
+        if pf_method == "hybrid" and isinstance(spec.Y_re, np.ndarray) and isinstance(spec.Y_im, np.ndarray):
+            from ..ops.power_flow import flat_start_jacobian_inv_np
+
+            J0inv = flat_start_jacobian_inv_np(spec.Y_re, spec.Y_im, dtype=spec.dtype)
         v_re, v_im, _, _, converged = solve_pfe(
-            spec.Y_re, spec.Y_im, p_in, q_in, x_tol=x_tol, max_iter=max_iter, method=method,
+            spec.Y_re, spec.Y_im, p_in, q_in, x_tol=x_tol, max_iter=max_iter, method=pf_method,
             chord_iters=chord_iters, J0inv=J0inv, chord_precision=chord_precision, init=v_init,
         )
 
@@ -524,8 +349,7 @@ def transition(
 
 
 def sim_reset(
-    spec: GridSpec, s0, x_tol=1e-5, max_iter=100, pf_method="scan", chord_iters=16, chord_precision=None,
-    nr_pivot=False,
+    spec: GridSpec, s0, x_tol=1e-5, max_iter=100, pf_method="scan", chord_iters=16, chord_precision=None
 ) -> SimState:
     """Apply an initial state vector (reference layout, MW/MVAr/MWh units)
     to the grid (simulator.py:225-293).
@@ -559,7 +383,6 @@ def sim_reset(
         pf_method=pf_method,
         chord_iters=chord_iters,
         chord_precision=chord_precision,
-        nr_pivot=nr_pivot,
     )
     # Override the SoC with the requested initial value (simulator.py:284-288;
     # note the reference does not clip it here).

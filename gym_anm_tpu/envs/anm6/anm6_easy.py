@@ -4,10 +4,10 @@ Fully-observable 6-bus task with deterministic 24-hour load/generation
 profiles (piecewise-constant segments joined by linear ramps, 96 quarter-
 hour steps) and a single auxiliary variable: the time-of-day index.
 
-In addition to the reference's host-side ``init_state``/``next_vars`` hooks
-(using the Gymnasium ``np_random`` generator in the exact reference call
-order), this class provides the pure-JAX hooks ``init_state_jax(key)`` /
-``next_vars_jax(state_vec, key)`` used by the batched/vmapped fast path.
+This module holds the task's data, its pure-JAX hooks and
+:func:`make_core`, the batched fast path; it needs no Gymnasium.  The
+Gymnasium class :class:`~gym_anm_tpu.envs.anm6.anm6.ANM6Easy` wraps the
+same hooks.
 """
 
 from __future__ import annotations
@@ -15,8 +15,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 import jax.random as jrandom
-
-from .anm6 import ANM6
 
 
 def _profile(levels, ramps=None):
@@ -62,93 +60,9 @@ def _get_gen_time_series():
     return P_maxs
 
 
-class ANM6Easy(ANM6):
-    """The ``ANM6Easy-v0`` task (anm6_easy.py:8-74)."""
-
-    def __init__(self):
-        observation = "state"  # fully observable
-        K = 1
-        delta_t = 0.25  # 15 minutes between timesteps
-        gamma = 0.995
-        lamb = 100
-        aux_bounds = np.array([[0, 24 / delta_t - 1]])
-        costs_clipping = (1, 100)
-        super().__init__(observation, K, delta_t, gamma, lamb, aux_bounds, costs_clipping)
-
-        self.P_loads = _get_load_time_series()
-        self.P_maxs = _get_gen_time_series()
-        # NB: numpy (not jnp) on purpose -- these tables are closed over by
-        # traced hooks and must fold into programs as host constants; eager
-        # device arrays force a device->host copy at lowering time (see
-        # CLAUDE.md; the BENCH_r02 failure mode).
-        self._P_loads_j = self.P_loads
-        self._P_maxs_j = self.P_maxs
-
-    # ------------------------------------------------------------------
-    # Host (reference-RNG-order) hooks.
-    # ------------------------------------------------------------------
-    def init_state(self):
-        """Sample s0 at a random time of day (anm6_easy.py:25-52).
-
-        Reference quirks kept: the generator Q entries and storage SoC entry
-        are sampled from the *p.u.* device bounds even though the state
-        vector is in MVAr/MWh (anm6_easy.py:42-50).
-        """
-        n_dev, n_gen, n_des = 7, 2, 1
-        state = np.zeros(2 * n_dev + n_des + n_gen + self.K)
-
-        t_0 = self.np_random.integers(0, int(24 / self.delta_t))
-        state[-1] = t_0
-
-        for dev_id, p_load in zip([1, 3, 5], self.P_loads):
-            state[dev_id] = p_load[t_0]
-            state[n_dev + dev_id] = p_load[t_0] * self.simulator.devices[dev_id].qp_ratio
-
-        for idx, (dev_id, p_max) in enumerate(zip([2, 4], self.P_maxs)):
-            state[2 * n_dev + n_des + idx] = p_max[t_0]
-            state[dev_id] = p_max[t_0]
-            state[n_dev + dev_id] = self.np_random.uniform(
-                self.simulator.devices[dev_id].q_min, self.simulator.devices[dev_id].q_max
-            )
-
-        for idx, dev_id in enumerate([6]):
-            state[2 * n_dev + idx] = self.np_random.uniform(
-                self.simulator.devices[dev_id].soc_min, self.simulator.devices[dev_id].soc_max
-            )
-
-        return state
-
-    def next_vars(self, s_t):
-        """Deterministic table lookup by time-of-day (anm6_easy.py:54-65)."""
-        aux = int((s_t[-1] + 1) % (24 / self.delta_t))
-        vars = [p_load[aux] for p_load in self.P_loads]
-        vars += [p_max[aux] for p_max in self.P_maxs]
-        vars.append(aux)
-        return np.array(vars)
-
-    def reset(self, **kwargs):
-        obs, info = super().reset(**kwargs)
-
-        # Advance the rendering clock to the sampled time of day
-        # (anm6_easy.py:67-74).
-        new_date = self.date + self.state[-1] * self.timestep_length
-        super().reset_date(new_date)
-
-        return obs, info
-
-    # ------------------------------------------------------------------
-    # Pure-JAX hooks for the batched fast path.
-    # ------------------------------------------------------------------
-    def init_state_jax(self, key):
-        return anm6easy_init_state(key, self._P_loads_j, self._P_maxs_j)
-
-    def next_vars_jax(self, s_t, key):
-        return anm6easy_next_vars(s_t, self._P_loads_j, self._P_maxs_j)
-
-
 def make_core(
     dtype=None, pf_max_iter=None, pf_method="tree", network=None, chord_precision=None, chord_iters=16,
-    nr_pivot=False, warm_start=False,
+    warm_start=False,
 ):
     """Build the pure-functional ANM6Easy :class:`EnvCore` (no Gymnasium
     adapter, no host hooks) -- the batched/vmapped fast path used by
@@ -158,16 +72,14 @@ def make_core(
     over 10k uniform-random-action steps, every converging Newton-Raphson
     solve on this task finishes in <= 8 iterations (p99.9 = 6); NR either
     converges quadratically within that budget or diverges, so 10 fixed
-    masked iterations reproduce the reference's 100-cap semantics on the
-    straight-line TPU path.  Pass ``pf_max_iter=100, pf_method="while"``
-    for the exact host semantics.
+    masked iterations reproduce the reference's 100-cap semantics.  Pass
+    ``pf_max_iter=100, pf_method="while"`` for the exact host semantics.
 
-    ``pf_method="tree"`` (default since round 5): the 6-bus network is
-    radial, so the tree-structured block elimination applies, and its
-    fused VMEM kernel (ops/pallas_tree.py) measures 16.0M env-steps/s on
-    chip at B=4096 vs 10.1M for the dense Pallas NR kernel
-    (``pf_method="pallas"``, the previous default) -- identical on-chip
-    parity (0 termination mismatches) on both.  ``warm_start`` keeps the same budget:
+    ``pf_method="tree"`` (default): the 6-bus network is radial, so the
+    tree-structured block elimination applies (the CUDA kernel of
+    ops/tree_cuda.py on a GPU, ops/tree_nr.py elsewhere).  ``pf_method=
+    "hybrid"`` runs the chord + NR-tail solver with a calibrated tail of 6
+    when ``pf_max_iter`` is not given.  ``warm_start`` keeps the same budget:
     measured with scripts/warm_calib.py, warm starting saves no iterations
     here (flat-start NR is already at p50 = 3 and the uniform-random
     actions move the operating point too much) -- a measured dead end kept
@@ -186,11 +98,10 @@ def make_core(
     if network is None:
         network = _canonical_network
     if pf_max_iter is None:
-        pf_max_iter = 10
+        pf_max_iter = 6 if pf_method == "hybrid" else 10
     spec, _ = build_grid(network, delta_t=0.25, lamb=100, dtype=dtype)
-    # Host numpy constants (NOT eager device arrays): the task hooks close
-    # over these tables, so they must fold into traced programs without a
-    # device->host transfer at lowering time (CLAUDE.md rule).
+    # Host numpy constants (not device arrays): the task hooks close over
+    # these tables, so they fold into traced programs as constants.
     P_loads = np.asarray(_get_load_time_series(), dtype=spec.dtype)
     P_maxs = np.asarray(_get_gen_time_series(), dtype=spec.dtype)
     K = 1
@@ -207,7 +118,6 @@ def make_core(
         pf_method=pf_method,
         chord_iters=chord_iters,
         chord_precision=chord_precision,
-        nr_pivot=nr_pivot,
         warm_start=warm_start,
         stochastic_vars=False,  # deterministic table lookup by time-of-day
         # Measured over 10k sampled initial states: every ANM6Easy s0
@@ -225,8 +135,7 @@ def anm6easy_init_state(key, P_loads, P_maxs):
     so individual samples differ from the NumPy-PCG64 host path.
     """
     n_dev, n_gen, n_des, K = 7, 2, 1, 1
-    # Host tables enter the trace here (fold as program constants; passing
-    # them pre-converted as eager device arrays is what broke BENCH_r02).
+    # Host tables enter the trace here and fold as program constants.
     P_loads = jnp.asarray(P_loads)
     P_maxs = jnp.asarray(P_maxs)
     k_t, k_q2, k_q4, k_soc = jrandom.split(key, 4)

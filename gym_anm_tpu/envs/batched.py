@@ -1,15 +1,15 @@
-"""Batched lockstep environments: the TPU fast path.
+"""Batched lockstep environments: the accelerator fast path.
 
 The reference steps one environment at a time in Python.  Here an
 :class:`~gym_anm_tpu.core.env_core.EnvCore` executes a whole ``[B, ...]``
 batch of :class:`EnvState` pytrees **natively** (the physics supports
-leading batch axes; the NR solver internally lays the batch on the TPU's
-128-wide lane axis -- see :mod:`gym_anm_tpu.ops.power_flow`), giving
-thousands of lockstep environments per chip; ``rollout_fn`` additionally
+leading batch axes; the NR solvers lay the batch on their innermost axis
+-- see :mod:`gym_anm_tpu.ops.power_flow`), giving thousands of lockstep
+environments per device; ``rollout_fn`` additionally
 ``lax.scan``s over time so an entire trajectory segment is a single XLA
 program.
 
-Multi-host/multi-chip scaling shards the batch axis over a
+Multi-device scaling shards the batch axis over a
 ``jax.sharding.Mesh`` (see :mod:`gym_anm_tpu.parallel.sharding`): stepping
 is embarrassingly parallel, so the only collectives are those XLA inserts
 for cross-batch reductions (e.g. mean rewards in a learner).

@@ -5,15 +5,15 @@ MV trunks leaving the slack substation, each trunk a chain with short
 laterals — the depth stays modest (like a real multi-feeder substation)
 so the network is physically feasible at full load, while the Jacobian
 grows to 280x280 and the chord phase of the hybrid power-flow solver
-becomes almost pure MXU work.
+becomes almost pure matmul work.
 
 Branch ratings are sized from the actual downstream peak load of each
 branch's subtree (times a margin), so congestion is meaningful but the
 network is not degenerate.  Like :mod:`feeder33`, everything is generated
 deterministically from a fixed seed.
 
-The environment class and functional core reuse the feeder machinery
-(:class:`~gym_anm_tpu.envs.feeder33.Feeder33Env` dynamics: mean-reverting
+The functional core reuses the feeder machinery (the
+:mod:`~gym_anm_tpu.envs.feeder33` dynamics: mean-reverting
 stochastic loads around a daily profile, random renewable potentials)
 with solver budgets calibrated for this network (see ``make_core``).
 """
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .feeder33 import Feeder33Env, make_core as _feeder_make_core
+from .feeder33 import make_core as _feeder_make_core
 
 
 def make_multi_feeder_network(
@@ -140,60 +140,40 @@ def make_multi_feeder_network(
 _NETWORK = make_multi_feeder_network()
 
 
-class Feeder141Env(Feeder33Env):
-    """Gymnasium environment on the 141-bus multi-trunk network (same
-    stochastic load/renewable dynamics as the 33-bus feeder)."""
-
-    def __init__(self, seed=None):
-        super().__init__(seed=seed, network=_NETWORK)
-
-
 def make_core(
     dtype=None, pf_max_iter=None, pf_method="tree", chord_iters=28, x_tol=None, chord_precision=None,
-    nr_pivot=False, warm_start=False,
+    warm_start=False,
 ):
     """Pure-functional EnvCore for the 141-bus network.
 
     Scalable solvers at this size:
 
-    * ``pf_method="tree"`` (default since round 5) — **true per-lane NR**
-      via the radial tree-structured block elimination: O(n) per-lane
-      solves and sparse Y V products, no [560, 560, B] Jacobian, no
-      560-wide dense elimination.  Exact (same solution as per-lane NR to
+    * ``pf_method="tree"`` (default) — **true per-lane NR** via the radial
+      tree-structured block elimination: O(n) per-lane solves and sparse
+      Y V products, no [560, 560, B] Jacobian, no 560-wide dense
+      elimination (the CUDA kernel of ops/tree_cuda.py on a GPU,
+      ops/tree_nr.py elsewhere).  Exact (same solution as per-lane NR to
       round-off) with a calibrated budget of 18 iterations
       (rollout-measured p100 = 15 including termination-adjacent lanes,
       scripts/warm_calib.py; random-injection-sweep interior lanes need
-      only ~3).  On TPU with aligned f32 batches it runs as the fused
-      VMEM kernel (ops/pallas_tree.py): 5.22M env-steps/s at B=4096 on
-      chip with a clean parity check — 2.8x the chord-only mode, so the
-      exact solver is now also the fastest and needs no accuracy
-      trade-off.  ``warm_start`` keeps the same budget (measured: no
+      only ~3).  ``warm_start`` keeps the same budget (measured: no
       iteration savings under per-step injection jumps).
-    * ``pf_method="hybrid"`` — **chord-only** (zero true-NR
-      tail): one constant [560, 560] x [560, B] MXU matmul per iteration
-      with convergence masking; 28 iterations (5.6x the measured chord
-      p100 = 5).  Inexact in the sense that lanes the chord method cannot
-      converge are flagged terminated even if true NR would converge them
-      (at 3x loading it mis-terminates 32.8% of convergeable lanes --
-      tests/test_tree_nr.py); kept as the MXU-path ablation/reference
-      mode, 1.89M steps/s.
+    * ``pf_method="hybrid"`` — **chord-only** (zero true-NR tail): one
+      constant [560, 560] x [560, B] matmul per iteration with convergence
+      masking; 28 iterations (5.6x the measured chord p100 = 5).  Inexact
+      in the sense that lanes the chord method cannot converge are
+      flagged terminated even if true NR would converge them (at 3x
+      loading it mis-terminates 32.8% of convergeable lanes --
+      tests/test_tree_nr.py).
 
     Budgets from this network's harsh random-injection sweep (per-bus
     aggregate bounds, the protocol of ``scripts/chord_proto.py``).  Lanes
     that diverge or stall are flagged unconverged (grid collapse), exactly
     like NR budget exhaustion.  ``pf_method="scan"`` (budget 6) keeps
     dense per-lane NR available for small-batch/CPU verification.
-
-    The fused Pallas paths are unavailable here: a 560x560 per-lane
-    Jacobian tile does not fit VMEM (they are built for <=64x64 networks).
     """
-    if pf_method in ("pallas", "fused", "fused_hybrid"):
-        raise ValueError(
-            f"pf_method={pf_method!r} unsupported at 141 buses: per-lane 560x560 "
-            "Jacobian tiles exceed VMEM. Use 'tree' (exact), 'hybrid' (chord-only) or 'scan'."
-        )
     if pf_max_iter is None:
-        if pf_method in ("hybrid", "xla_hybrid"):
+        if pf_method == "hybrid":
             pf_max_iter = 0
         elif pf_method in ("tree", "tree_xla"):
             pf_max_iter = 18
@@ -204,8 +184,8 @@ def make_core(
         # reference's 1e-5 on marginal (full-load) lanes at this network
         # size: the Y V products are O(100) terms cancelling to O(0.01), so
         # f32 rounding leaves ~1e-5 p.u. of noise in the computed mismatch
-        # regardless of solver (first seen on the chord path, BENCH_r02;
-        # measured identically on the tree path -- at 1e-5 the tree solver
+        # regardless of solver (measured on the chord and tree paths -- at
+        # 1e-5 the tree solver
         # mis-flagged 1.2% of a random-action rollout's lanes as collapsed
         # vs the f64 oracle, 0% at 3e-5).  3e-5 p.u. (3 kVA on the 100 MVA
         # base) sits above the plateau and below any physically meaningful
@@ -216,20 +196,17 @@ def make_core(
         # Host-side dtype resolution (no eager device op).
         f32 = (dtype == _jnp.float32) if dtype is not None else not jax.config.jax_enable_x64
         # The plateau is a property of the f32 mismatch itself, not of any
-        # solver (ADVICE r4 #1): every f32 solver config at this size uses
-        # 3e-5, including the scan/NR-tail verification paths.
+        # solver: every f32 solver config at this size uses 3e-5,
+        # including the scan/NR-tail verification paths.
         x_tol = 3e-5 if f32 else 1e-5
-    if chord_precision is None and pf_method in ("hybrid", "xla_hybrid") and pf_max_iter == 0:
-        # Chord-only solve (this env's default; the gate excludes untested
-        # hybrid-with-NR-tail configs): the J0inv @ F update products ARE
-        # the program, and the chord fixed point is precision-independent
-        # (the mismatch stays HIGHEST).  bf16-truncated 1-pass MXU products
-        # are +30% end-to-end at identical on-chip parity (bench.py --check,
-        # RESULTS.md round 2; docs/quirks.md #10), so they are this
-        # network's default; pass chord_precision="highest" to get 6-pass
-        # f32-exact products back.
+    if chord_precision is None and pf_method == "hybrid" and pf_max_iter == 0:
+        # Chord-only solve: the J0inv @ F update products ARE the program,
+        # and the chord fixed point does not depend on their precision (the
+        # mismatch stays HIGHEST), so they run at the backend's default
+        # matmul precision; pass chord_precision="highest" for exact-f32
+        # products.
         chord_precision = "default"
     return _feeder_make_core(
         dtype=dtype, pf_max_iter=pf_max_iter, pf_method=pf_method, network=_NETWORK, chord_iters=chord_iters,
-        x_tol=x_tol, chord_precision=chord_precision, nr_pivot=nr_pivot, warm_start=warm_start,
+        x_tol=x_tol, chord_precision=chord_precision, warm_start=warm_start,
     )

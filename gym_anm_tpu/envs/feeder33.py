@@ -7,8 +7,9 @@ Impedances/ratings are drawn once from realistic distribution-network
 ranges with a fixed seed, so the network dict is deterministic and the
 environment is reproducible.
 
-Provides both the Gymnasium class (:class:`Feeder33Env`, host hooks) and a
-pure-functional :func:`make_core` for the batched/vmapped fast path.
+This module holds the network and the pure-functional :func:`make_core`
+for the batched fast path; the Gymnasium class is
+:class:`gym_anm_tpu.envs.feeder_envs.Feeder33Env`.
 """
 
 from __future__ import annotations
@@ -16,8 +17,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 import jax.random as jrandom
-
-from .anm_env import ANMEnv
 
 
 def make_feeder_network(n_bus: int = 33, seed: int = 0) -> dict:
@@ -80,53 +79,6 @@ def make_feeder_network(n_bus: int = 33, seed: int = 0) -> dict:
 _NETWORK = make_feeder_network()
 
 
-class Feeder33Env(ANMEnv):
-    """Gymnasium environment on the 33-bus feeder with stochastic loads
-    (Ornstein-Uhlenbeck-like mean-reverting noise around a daily profile)
-    and renewable potentials."""
-
-    def __init__(self, seed=None, network=None):
-        observation = "state"
-        K = 1
-        delta_t = 0.25
-        gamma = 0.995
-        lamb = 100
-        aux_bounds = np.array([[0, 95]])
-        costs_clipping = (1, 100)
-        net = _NETWORK if network is None else network
-        super().__init__(net, observation, K, delta_t, gamma, lamb, aux_bounds, costs_clipping, seed)
-        spec = self.simulator.spec
-        self._load_scale = -np.asarray(spec.load_p_min) * spec.baseMVA
-        self._pv_scale = np.asarray(spec.gen_p_max) * spec.baseMVA
-
-    def init_state(self):
-        spec = self.simulator.spec
-        n_dev, n_des, n_gen = spec.n_dev, spec.n_des, spec.n_gen
-        state = np.zeros(2 * n_dev + n_des + n_gen + self.K)
-        t0 = self.np_random.integers(0, 96)
-        state[-1] = t0
-        frac = _daily_factor(t0)
-        loads = -self._load_scale * frac * self.np_random.uniform(0.3, 0.9, spec.n_load)
-        pos = np.asarray(spec.load_pos)
-        state[pos] = loads
-        state[n_dev + pos] = loads * 0.25
-        pots = self._pv_scale * self.np_random.uniform(0.2, 1.0, n_gen)
-        state[np.asarray(spec.gen_pos)] = pots
-        state[2 * n_dev + n_des :][:n_gen] = pots
-        state[2 * n_dev : 2 * n_dev + n_des] = self.np_random.uniform(
-            0, np.asarray(spec.des_soc_max) * spec.baseMVA
-        )
-        return state
-
-    def next_vars(self, s_t):
-        spec = self.simulator.spec
-        aux = int((s_t[-1] + 1) % 96)
-        frac = _daily_factor(aux)
-        loads = -self._load_scale * frac * self.np_random.uniform(0.3, 0.9, spec.n_load)
-        pots = self._pv_scale * self.np_random.uniform(0.2, 1.0, spec.n_gen)
-        return np.concatenate([loads, pots, [aux]])
-
-
 def _daily_factor(t):
     """Smooth daily demand factor in [0.5, 1] peaking in the evening."""
     return 0.75 + 0.25 * np.sin(2 * np.pi * (np.asarray(t, dtype=float) / 96.0 - 0.3))
@@ -140,22 +92,20 @@ def make_core(
     chord_iters=16,
     x_tol=1e-5,
     chord_precision=None,
-    nr_pivot=False,
     warm_start=False,
 ):
     """Pure-functional EnvCore for the feeder (batched fast path).
 
     Default solver: ``pf_method="tree"`` -- true per-lane NR with the
-    radial tree elimination (O(n) per-lane 2x2-block solves + sparse Y V,
-    ops/tree_nr.py): an *exact* solver whose per-iteration cost is far
-    below the dense elimination, measured 1.43M env-steps/s on chip with
-    zero termination mismatches on the on-chip parity check -- 4.9x the
-    previous exact default (round 4; BENCH_local_feeder33_tree.json).
+    radial tree elimination (O(n) per-lane 2x2-block solves + sparse Y V;
+    the CUDA kernel of ops/tree_cuda.py on a GPU, ops/tree_nr.py
+    elsewhere): an *exact* solver whose per-iteration cost is far below
+    the dense elimination.
 
-    ``pf_method="hybrid"`` keeps the previous default: 16 chord iterations
-    with the constant flat-start Jacobian (matmul-only; converges 98.6% of
-    lanes on harsh random-injection sweeps) followed by a 6-iteration
-    dense true-NR tail (293k steps/s on chip).  ``pf_max_iter=None``
+    ``pf_method="hybrid"``: 16 chord iterations with the constant
+    flat-start Jacobian (matmul-only; converges 98.6% of lanes on harsh
+    random-injection sweeps) followed by a 6-iteration dense true-NR
+    tail.  ``pf_max_iter=None``
     auto-selects the calibrated budget: 10 for tree (rollout-measured
     p100 = 6 incl. termination-adjacent lanes, +4 margin --
     scripts/warm_calib.py), 6 (tail) for hybrid, 15 for dense pure NR.
@@ -163,7 +113,7 @@ def make_core(
     no iterations on this task's per-step injection jumps -- see
     scripts/warm_calib.py)."""
     if pf_max_iter is None:
-        if pf_method in ("hybrid", "xla_hybrid", "fused_hybrid"):
+        if pf_method == "hybrid":
             pf_max_iter = 6
         elif pf_method in ("tree", "tree_xla"):
             pf_max_iter = 10
@@ -176,9 +126,8 @@ def make_core(
     net = _NETWORK if network is None else network
     spec, _ = build_grid(net, delta_t=0.25, lamb=100, dtype=dtype)
     K = 1
-    # Host numpy constants (NOT eager device arrays): the hooks close over
-    # these, so they must fold into traced programs without a device->host
-    # transfer at lowering time (CLAUDE.md rule).
+    # Host numpy constants (not device arrays): the hooks close over these,
+    # so they fold into traced programs as constants.
     load_scale = np.asarray(-np.asarray(spec.load_p_min) * spec.baseMVA, dtype=spec.dtype)
     pv_scale = np.asarray(np.asarray(spec.gen_p_max) * spec.baseMVA, dtype=spec.dtype)
     soc_max_mwh = np.asarray(np.asarray(spec.des_soc_max) * spec.baseMVA, dtype=spec.dtype)
@@ -224,7 +173,6 @@ def make_core(
         chord_iters=chord_iters,
         chord_precision=chord_precision,
         x_tol=x_tol,
-        nr_pivot=nr_pivot,
         warm_start=warm_start,
         # Feeder initial states (loads at 0.3-0.9x peak) essentially always
         # converge; one masked retry round covers the tail without the old

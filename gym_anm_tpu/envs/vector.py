@@ -5,7 +5,7 @@ loops (Stable-Baselines3, CleanRL, ...) expect the standard
 ``gymnasium.vector.VectorEnv`` interface.  :class:`ANMVectorEnv` provides it
 on top of :class:`~gym_anm_tpu.core.env_core.EnvCore`: all ``num_envs``
 environments step in lockstep inside one jitted program on the accelerator,
-so this is simultaneously the drop-in vector API *and* the TPU fast path
+so this is simultaneously the drop-in vector API *and* the batched fast path
 (unlike ``gymnasium.vector.SyncVectorEnv``, which loops envs in Python).
 
 Autoreset follows Gymnasium >= 1.0 **next-step** semantics

@@ -1,12 +1,11 @@
 """Small-matrix batched linear algebra.
 
-``jnp.linalg.solve`` lowers to an LU custom call that not all TPU runtimes
-implement (and whose dynamic control flow defeats fusion for the tiny
-systems we solve).  The Newton-Raphson Jacobians here are [2(n_bus-1)]^2 --
+``jnp.linalg.solve`` lowers to an LU library call whose dynamic control flow
+defeats fusion for the tiny systems we solve.  The Newton-Raphson Jacobians here are [2(n_bus-1)]^2 --
 10x10 for the 6-bus grid -- so a statically-unrolled Gaussian elimination
 with partial pivoting, vectorized over the environment batch, is both
 portable and faster: n pivot steps of fully-vectorized [B, n, n+1]
-elementwise work on the VPU, no data-dependent control flow anywhere.
+elementwise work, no data-dependent control flow anywhere.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched Newton-Raphson AC power-flow solve, all-real arithmetic.
 
-TPU-native reimplementation of the reference solver
+JAX reimplementation of the reference solver
 (``gym_anm/simulator/solve_load_flow.py:7-226``): the same mismatch
 ``f(x) = (V (Y V)^*)[1:] - s`` (solve_load_flow.py:116), the same polar
 Jacobian blocks dS/d(theta) and dS/d|V| (solve_load_flow.py:123-164), the
@@ -8,22 +8,20 @@ same flat start (theta=0, |V|=1; solve_load_flow.py:42), the same stopping
 rule (inf-norm of mismatch <= x_tol, or the iteration cap, NaN => diverged;
 solve_load_flow.py:176-226).
 
-TPU-first design decisions (vs. a translation):
+Design decisions (vs. a translation):
 
-* **All complex arithmetic is expanded to real (re, im) pairs** -- complex
-  dtypes are poorly supported on TPU runtimes and the real form maps the
-  Y*V products onto plain f32 matmuls.
+* **All complex arithmetic is expanded to real (re, im) pairs**, which
+  maps the Y*V products onto plain real matmuls.
 * **The environment batch is the innermost (lane) axis.**  Internally every
   tensor is laid out batch-last -- voltages [n, B], Jacobians [2m, 2m, B] --
-  so the 8x128 VPU vectorizes across environments and ``Y @ V`` becomes an
-  [n, n] x [n, B] MXU matmul.  A vmapped batch-first layout would leave the
-  hardware 90+% idle on these tiny per-network dimensions.
+  so elementwise work vectorizes across environments and ``Y @ V`` becomes
+  an [n, n] x [n, B] matmul, instead of a vmapped batch-first layout over
+  tiny per-network dimensions.
 * **Fixed-iteration ``lax.scan`` with per-lane convergence masking** is the
   default loop: converged/diverged lanes freeze (their updates are masked
   out), so a batch is one straight-line XLA program with no data-dependent
   control flow.  ``method="while"`` gives the classic early-exit
-  ``lax.while_loop`` variant for hosts that support it; both produce
-  identical results.
+  ``lax.while_loop`` variant; both produce identical results.
 * The scipy sparse LU becomes a batch-last Gaussian elimination with
   partial pivoting whose pivot selection uses one-hot contractions instead
   of gathers; the elimination loop is statically unrolled (dense is optimal
@@ -49,10 +47,9 @@ _HI = lax.Precision.HIGHEST
 #: Matmul precision of the chord iteration's constant-Jacobian product
 #: ``dx = J0inv @ F``.  The chord method is a self-correcting fixed-point
 #: iteration (the mismatch F is always evaluated at HIGHEST precision), so
-#: the update product tolerates bf16 multiplies -- switch to
-#: ``lax.Precision.DEFAULT`` to trade ~0.4% update accuracy for 1-pass MXU
-#: matmuls on the [2m, 2m] x [2m, B] product (evaluated with the on-chip
-#: parity check + bench; see scripts/chord_proto.py and RESULTS.md).
+#: the update product tolerates rounded inputs -- ``lax.Precision.DEFAULT``
+#: trades update accuracy for a faster [2m, 2m] x [2m, B] product (see
+#: scripts/chord_proto.py).
 CHORD_PRECISION = _HI
 
 
@@ -66,7 +63,7 @@ def solve_ge_lanes(A, b):
 
     Gaussian elimination with partial pivoting; the elimination loop is
     unrolled at trace time and pivot row selection/swap uses one-hot masks
-    (no gathers), so every op is a [n, n+1, B] elementwise/VPU op with the
+    (no gathers), so every op is a [n, n+1, B] elementwise op with the
     batch riding the 128-wide lane axis.  Singular lanes yield inf/NaN
     (detected downstream as divergence), mirroring the reference's singular-
     Jacobian handling (anm_env.py:280-281).
@@ -82,7 +79,7 @@ def solve_ge_lanes(A, b):
         piv = jnp.argmax(col, axis=0)  # [B]
         onehot = (rows[:, None] == piv[None, :]).astype(Ab.dtype)  # [n, B]
         # row_piv[c, B] = sum_r onehot[r] * Ab[r, c]
-        row_piv = jnp.einsum("rB,rcB->cB", onehot, Ab)
+        row_piv = jnp.einsum("rB,rcB->cB", onehot, Ab, precision=_HI)
         row_k = Ab[k]  # [n+1, B]
         # Swap: row piv := row k, then row k := row piv.
         Ab = jnp.where(onehot[:, None, :] > 0, row_k[None, :, :], Ab)
@@ -96,7 +93,7 @@ def solve_ge_lanes(A, b):
     # Back substitution (unrolled).
     x = jnp.zeros_like(b)
     for k in range(n - 1, -1, -1):
-        acc = jnp.einsum("jB,jB->B", Ab[k, k + 1 : n, :], x[k + 1 : n, :]) if k + 1 < n else 0.0
+        acc = jnp.einsum("jB,jB->B", Ab[k, k + 1 : n, :], x[k + 1 : n, :], precision=_HI) if k + 1 < n else 0.0
         x = x.at[k].set((Ab[k, n, :] - acc) / Ab[k, k, :])
     return x
 
@@ -106,19 +103,16 @@ def _solve_linear_lanes(A, b):
 
     Dispatches on system size at trace time: the statically-unrolled
     lane-major Gaussian elimination (``solve_ge_lanes``) is the fast path
-    for the small systems the batched envs solve (n <= ~128) and the only
-    portable path on restricted TPU runtimes, but its 2n unrolled trace
-    steps make compile time quadratic-ish in n.  For large systems on
-    non-TPU backends (e.g. 560x560 Jacobians of the 141-bus network in the
-    CPU test/parity configuration) LAPACK via ``jnp.linalg.solve`` is both
-    instant to compile and faster to run.  Singular lanes yield inf/NaN in
-    either path (LAPACK's batched solve propagates NaNs rather than
-    raising under jit), which callers detect as divergence.
+    for the small systems the batched envs solve (n <= ~128), but its 2n
+    unrolled trace steps make compile time quadratic-ish in n.  For large
+    systems (e.g. 560x560 Jacobians of the 141-bus network)
+    ``jnp.linalg.solve`` (LAPACK / cuSOLVER) is both instant to compile and
+    faster to run.  Singular lanes yield inf/NaN in either path (the batched
+    solve propagates NaNs rather than raising under jit), which callers
+    detect as divergence.
     """
-    import jax
-
     n = A.shape[0]
-    if n >= 128 and jax.default_backend() != "tpu":
+    if n >= 128:
         X = jnp.linalg.solve(jnp.moveaxis(A, -1, 0), jnp.moveaxis(b, -1, 0)[..., None])
         return jnp.moveaxis(X[..., 0], 0, -1)
     return solve_ge_lanes(A, b)
@@ -132,7 +126,7 @@ def _construct_v(theta, vm):
 
 
 def _yv(Y_re, Y_im, v_re, v_im):
-    """I = Y V: [n, n] x [n, B] real matmuls (MXU)."""
+    """I = Y V: [n, n] x [n, B] real matmuls."""
     i_re = jnp.dot(Y_re, v_re, precision=_HI) - jnp.dot(Y_im, v_im, precision=_HI)
     i_im = jnp.dot(Y_re, v_im, precision=_HI) + jnp.dot(Y_im, v_re, precision=_HI)
     return i_re, i_im
@@ -227,6 +221,40 @@ def flat_start_jacobian_inv(Y_re, Y_im):
     return jnp.linalg.inv(J0)
 
 
+def nr_flops_per_lane(n: int, max_iter: int, chord_iters: int = 0) -> int:
+    """Analytic executed-FLOP count of :func:`solve_pfe` per environment lane.
+
+    XLA's cost analysis counts a loop body once, not once per trip, so
+    bench.py counts the NR/chord loop work statically.  Everything here has
+    static shapes and fixed iteration budgets, so the count is exact up to
+    the conventions below:
+
+    * masked/converged lanes still execute every op (lockstep SIMD), and
+      are counted -- this is the work the hardware performs;
+    * transcendentals (cos/sin/sqrt) and divides count as 1 flop;
+    * compares/selects (pivot masks, convergence masks) count as 0.
+
+    Per-lane breakdown (m = n-1 non-slack buses, nn = 2m system size):
+
+    * ``yv`` (I = YV): 8 n^2
+    * ``jacobian``: yvr/yvi 8 n^2 + w 4 n^2 + dSa 6 n^2 + u 8 n^2
+      + dSm 8 n^2  ~= 34 n^2
+    * ``solve`` (masked full-matrix GE, no shrinking active window):
+      per pivot k: one-hot row extract 2 nn (nn+1) + elimination update
+      2 nn (nn+1); over nn pivots ~= 4 nn^2 (nn+1); back-substitution nn^2
+    * chord iteration: J0inv @ F 2 nn^2 + yv 8 n^2
+    * construct_v / mismatch / masked carries: O(n) terms folded into the
+      30 n / 20 n fudge constants.
+    """
+    m = n - 1
+    nn = 2 * m
+    ge = 4 * nn * nn * (nn + 1)
+    nr_iter = 42 * n * n + ge + nn * nn + 30 * n
+    chord_iter = 2 * nn * nn + 8 * n * n + 20 * n
+    setup = 8 * n * n + 10 * n
+    return setup + chord_iters * chord_iter + max_iter * nr_iter
+
+
 def warm_init_theta_vm(v_re, v_im, m, dt):
     """Per-lane (theta, vm, valid) from previous-step bus voltages.
 
@@ -282,9 +310,9 @@ def solve_pfe(
         Iteration cap (reference ``lim_iter=100``).  For ``method="hybrid"``
         this is the budget of the *true-NR tail* only.
     method : {"scan", "while", "hybrid"}
-        "scan" is the straight-line masked fixed-iteration loop (TPU
-        default), "while" early-exits (fast on CPU; requires backend
-        while-loop support); both produce identical results.  "hybrid"
+        "scan" is the straight-line masked fixed-iteration loop, "while"
+        early-exits once every lane has converged or diverged; both
+        produce identical results.  "hybrid"
         prepends ``chord_iters`` chord iterations -- x <- x - J0^{-1} F(x)
         with the constant flat-start Jacobian -- which are pure matmuls
         (no per-lane Jacobian build or elimination), then finishes the
@@ -298,10 +326,9 @@ def solve_pfe(
         Matmul precision of the chord update ``J0inv @ F`` (None uses the
         module default :data:`CHORD_PRECISION`).  The chord phase is a
         self-correcting fixed-point iteration whose mismatch is always
-        evaluated at HIGHEST precision, so "default" (bf16-truncated
-        1-pass MXU products) converges to the same fixed point -- measured
-        +30% end-to-end throughput on the 141-bus chord-only path with the
-        on-chip parity check unchanged (RESULTS.md round 2).
+        evaluated at HIGHEST precision, so "default" (rounded-input
+        products, TF32 on GPU tensor cores) converges to the same fixed
+        point.
 
     init : None or (v_re, v_im) with the batch layout of the returned
         voltages ([B, n] / [n])

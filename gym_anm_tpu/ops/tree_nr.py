@@ -14,28 +14,28 @@ previously replaced by the inexact chord-only iteration.  The reference
 gets the same effect implicitly from scipy's sparse LU
 (solve_load_flow.py:220); here the elimination *is* the tree.
 
-TPU-first design (not a sparse-matrix library):
+Design (not a sparse-matrix library).  This XLA form is the plain reference
+and the path off the GPU; on a GPU in float32 the same solve runs as one
+CUDA kernel (ops/tree_cuda.py), whose per-lane walk uses this module's
+elimination order.
 
 * **Elimination-order renumbering makes every level contiguous.**  Nodes
   are grouped by height-from-leaves and renumbered so each level occupies
   a contiguous index range: per-level work is a slice, per-level results
   are written with contiguous ``.at[lo:hi].set`` updates, and child/parent
-  references are static gathers.  There are **no scatters anywhere** --
-  XLA scatters are slow on TPU, static gathers are relayouts.
+  references are static gathers.  There are **no scatters anywhere**.
 * **Child contributions are gathered by the parent, never pushed.**  Each
   node's Schur-complement contribution to its parent is written once at
   its own (contiguous) position; the parent gathers its children's rows
   when its level is eliminated.  Sibling conflicts therefore never arise.
 * **Sparse Y V.**  The nodal currents I = YV needed by the mismatch and
   Jacobian are evaluated over the tree edges (diagonal + parent + padded
-  children) as exact-f32 VPU multiply-adds -- O(n B) instead of the
-  O(n^2 B) dense matmul, and exempt from the MXU's bf16 input truncation
-  (the same reason ops/pallas_nr.py uses broadcast-sums).
+  children) as exact-f32 elementwise multiply-adds -- O(n B) instead of
+  the O(n^2 B) dense matmul, and free of any matmul input rounding.
 * **Batch-last layout** [*, B] throughout, like every hot solver here.
 * **No pivoting** -- within a 2x2 block (closed-form adjugate inverse) or
-  across the tree (fixed leaf-to-root order).  As with the pivot-free
-  dense elimination (ops/pallas_nr.py), correctness is guarded by the
-  convergence criterion: the accepted answer must drive the *true
+  across the tree (fixed leaf-to-root order).  Correctness is guarded by
+  the convergence criterion: the accepted answer must drive the *true
   mismatch* below ``x_tol``, so a bad elimination can only cost
   iterations or surface as non-convergence, never return a wrong
   converged voltage.
@@ -181,7 +181,7 @@ def _cmul(ar, ai, br, bi):
 
 def tree_nr_flops_per_lane(n: int, max_iter: int, maxC: int = 2, warm: bool = False) -> int:
     """Analytic executed-FLOP count per lane (same conventions as
-    ``ops.pallas_nr.nr_flops_per_lane``: masked lanes count, divides and
+    ``ops.power_flow.nr_flops_per_lane``: masked lanes count, divides and
     transcendentals count 1, compares/selects 0).
 
     Per node per NR iteration: sparse YV (2 + maxC complex mul-adds, 8

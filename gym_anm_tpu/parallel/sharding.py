@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host scaling of environment batches.
+"""Multi-device / multi-host scaling of environment batches.
 
 Stepping ANM environments is embarrassingly parallel across the batch, so
 the scaling strategy is pure data parallelism over a 1-D device mesh: the
@@ -6,11 +6,11 @@ the scaling strategy is pure data parallelism over a 1-D device mesh: the
 PRNG keys) is sharded over the ``env`` mesh axis with
 ``jax.sharding.NamedSharding``; jit then compiles one SPMD program per
 device and XLA inserts collectives only where cross-batch reductions appear
-(e.g. a learner's gradient ``psum`` -- riding ICI within a slice, DCN
-across slices).
+(e.g. a learner's gradient ``psum``, over NVLink between the cards of a
+host).  The mesh follows the algorithm: one data-parallel axis.
 
 The reference has no distributed capability at all (SURVEY.md section 2
-preamble); this module is the TPU-native scaling story replacing it.
+preamble); this module is the scaling story replacing it.
 """
 
 from __future__ import annotations

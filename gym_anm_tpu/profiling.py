@@ -2,14 +2,13 @@
 
 The reference's only timing is a wall-clock print in the ANM6Easy demo
 (``anm6_easy.py:143-151``); SURVEY §5 calls for step-rate counters plus
-``jax.profiler`` traces in the TPU build.  Two tools:
+``jax.profiler`` traces.  Two tools:
 
 ``StepRateCounter``
     A host-side throughput meter for rollout loops.  Records
     (steps, seconds) pairs per program call and reports total / median
-    rates.  Median-of-calls is the right statistic on tunneled or queued
-    device runtimes, where single calls see multi-ms latency noise
-    (see CLAUDE.md and bench.py).
+    rates.  Median-of-calls damps host-side noise (dispatch jitter, a
+    shared CPU) in single-call timings.
 
 ``trace``
     Context manager around ``jax.profiler`` that writes a TensorBoard-

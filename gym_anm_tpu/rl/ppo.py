@@ -1,16 +1,16 @@
 """On-device PPO trainer over batched ANM environments.
 
 The reference has no trainer at all (users bring their own); this module is
-the TPU-native learning stack the baseline configs call for: rollouts are
-generated by ``lax.scan`` over vmapped environment steps, advantages by a
+the on-device learning stack the baseline configs call for: rollouts are
+generated by ``lax.scan`` over batched environment steps, advantages by a
 scanned GAE pass, and updates by minibatched clipped-PPO epochs -- all one
 jitted program per iteration.  Scaling is data-parallel: the environment
 batch (and therefore rollout tensors) shard over the ``env`` mesh axis,
-parameters are replicated, and XLA inserts the gradient all-reduce over
-ICI (see gym_anm_tpu/parallel/sharding.py).
+parameters are replicated, and XLA inserts the gradient all-reduce (see
+gym_anm_tpu/parallel/sharding.py).
 
 Model: a tanh-squashed diagonal-Gaussian actor + value critic on a shared
-MLP torso (flax.linen), with observations normalized by the observation-
+MLP torso (:mod:`gym_anm_tpu.rl.mlp`), with observations normalized by the observation-
 space bounds and actions affinely mapped onto [action_low, action_high].
 """
 
@@ -23,28 +23,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import optax
 
 from ..core.env_core import EnvCore
 from ..envs.batched import BatchedEnv
-
-
-class ActorCritic(nn.Module):
-    """MLP actor-critic with a Gaussian policy head."""
-
-    action_n: int
-    hidden: tuple = (256, 256)
-
-    @nn.compact
-    def __call__(self, obs):
-        x = obs
-        for h in self.hidden:
-            x = nn.tanh(nn.Dense(h)(x))
-        mean = nn.Dense(self.action_n)(x)
-        log_std = self.param("log_std", nn.initializers.constant(-0.5), (self.action_n,))
-        value = nn.Dense(1)(x)[..., 0]
-        return mean, log_std, value
+from .mlp import ActorCritic
 
 
 @dataclasses.dataclass

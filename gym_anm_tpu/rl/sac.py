@@ -10,7 +10,7 @@ each) followed by ``grad_steps`` critic/actor/alpha updates — the whole
 iteration is a single XLA program.
 
 The reference has no trainer (users bring their own, README.md:60-75); this
-is part of the TPU-native learning stack alongside PPO.
+is part of the on-device learning stack alongside PPO.
 """
 
 from __future__ import annotations
@@ -21,45 +21,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import optax
 
 from ..core.env_core import EnvCore
 from ..envs.batched import BatchedEnv
-
-
-class Actor(nn.Module):
-    """MLP producing a tanh-squashed diagonal-Gaussian policy."""
-
-    action_n: int
-    hidden: tuple = (256, 256)
-
-    @nn.compact
-    def __call__(self, obs):
-        x = obs
-        for h in self.hidden:
-            x = nn.relu(nn.Dense(h)(x))
-        mean = nn.Dense(self.action_n)(x)
-        log_std = nn.Dense(self.action_n)(x)
-        log_std = jnp.clip(log_std, -5.0, 2.0)
-        return mean, log_std
-
-
-class TwinQ(nn.Module):
-    """Two independent Q(s, a) MLPs (clipped double-Q)."""
-
-    hidden: tuple = (256, 256)
-
-    @nn.compact
-    def __call__(self, obs, act):
-        x0 = jnp.concatenate([obs, act], axis=-1)
-        qs = []
-        for _ in range(2):
-            x = x0
-            for h in self.hidden:
-                x = nn.relu(nn.Dense(h)(x))
-            qs.append(nn.Dense(1)(x)[..., 0])
-        return qs[0], qs[1]
+from .mlp import Actor, TwinQ
 
 
 @dataclasses.dataclass

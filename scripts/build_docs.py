@@ -211,7 +211,7 @@ def page(slug: str, title: str, body: str) -> str:
 <nav><h2>gym-anm-tpu</h2>%s</nav>
 <main>
 %s
-<footer>gym-anm-tpu — a TPU-native Active Network Management RL framework.
+<footer>gym-anm-tpu — a JAX Active Network Management RL framework.
 Generated by <code>scripts/build_docs.py</code>.</footer>
 </main>
 </div>

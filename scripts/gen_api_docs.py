@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Generate docs/api.md — the public API reference — by introspection.
 
-The TPU-native analog of the reference's sphinx ``autosummary`` pages
+The analog of the reference's sphinx ``autosummary`` pages
 (reference ``docs/source/topics/api.rst`` + ``_autosummary/``): one
 markdown section per public module, listing public classes (with their
 public methods) and functions, each with its signature and docstring
@@ -36,7 +36,8 @@ MODULES = [
     ("gym_anm_tpu.core.obs", None),
     ("gym_anm_tpu.core.env_core", None),
     ("gym_anm_tpu.ops.power_flow", None),
-    ("gym_anm_tpu.ops.pallas_nr", None),
+    ("gym_anm_tpu.ops.tree_nr", None),
+    ("gym_anm_tpu.ops.tree_cuda", None),
     ("gym_anm_tpu.ops.projection", None),
     ("gym_anm_tpu.ops.linalg", None),
     ("gym_anm_tpu.envs.anm_env", None),
@@ -47,12 +48,15 @@ MODULES = [
     ("gym_anm_tpu.envs.anm6.anm6_easy", None),
     ("gym_anm_tpu.envs.feeder33", None),
     ("gym_anm_tpu.envs.feeder141", None),
+    ("gym_anm_tpu.envs.feeder_envs", None),
     ("gym_anm_tpu.agents.mpc", None),
     ("gym_anm_tpu.agents.mpc_constant", None),
     ("gym_anm_tpu.agents.mpc_perfect", None),
     ("gym_anm_tpu.parallel.sharding", None),
     ("gym_anm_tpu.rl.ppo", None),
     ("gym_anm_tpu.rl.sac", None),
+    ("gym_anm_tpu.rl.mlp", None),
+    ("gym_anm_tpu.runtime", None),
     ("gym_anm_tpu.envs.randomized", None),
     ("gym_anm_tpu.render.rendering", None),
     ("gym_anm_tpu.render.servers", None),

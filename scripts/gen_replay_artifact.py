@@ -18,7 +18,7 @@ import numpy as np
 
 
 def main():
-    from gym_anm_tpu.envs.feeder141 import Feeder141Env
+    from gym_anm_tpu.envs import Feeder141Env
 
     env = Feeder141Env(seed=3)
     env.reset(seed=3)

@@ -92,7 +92,7 @@ def main():
     ap.add_argument(
         "--polish",
         action="store_true",
-        help="mixed-precision accuracy mode: after the on-chip f32 ADMM, run the "
+        help="mixed-precision accuracy mode: after the on-device f32 ADMM, run the "
         "host-side f64 sparse-KKT active-set polish per lane (banded solver; "
         "recovers the exact LP vertex -- pair with --verify to measure the "
         "objective gap vs HiGHS)",
@@ -101,8 +101,7 @@ def main():
         "--f64",
         action="store_true",
         help="run the ADMM solver in float64 (scoped enable_x64; the accuracy "
-        "mode for f32-native TPUs -- closes the ~5-10%% f32 objective gap at "
-        "feeder141 scale to ~1e-5 at an emulation cost)",
+        "mode -- closes the ~5-10%% f32 objective gap at feeder141 scale to ~1e-5)",
     )
     ap.add_argument(
         "--verify",
@@ -137,11 +136,14 @@ def main():
     from gym_anm_tpu.agents import MPCAgentConstant, MPCAgentConstantBanded
 
     if args.env == "feeder33":
-        from gym_anm_tpu.envs.feeder33 import Feeder33Env as HostEnv, make_core
+        from gym_anm_tpu.envs import Feeder33Env as HostEnv
+        from gym_anm_tpu.envs.feeder33 import make_core
     elif args.env == "feeder141":
-        from gym_anm_tpu.envs.feeder141 import Feeder141Env as HostEnv, make_core
+        from gym_anm_tpu.envs import Feeder141Env as HostEnv
+        from gym_anm_tpu.envs.feeder141 import make_core
     else:
-        from gym_anm_tpu.envs.anm6.anm6_easy import ANM6Easy as HostEnv, make_core
+        from gym_anm_tpu.envs import ANM6Easy as HostEnv
+        from gym_anm_tpu.envs.anm6.anm6_easy import make_core
     from gym_anm_tpu.envs.batched import BatchedEnv
 
     agent_cls = MPCAgentConstantBanded if args.solver == "banded" else MPCAgentConstant

@@ -6,7 +6,7 @@ owning 4 virtual CPU devices, joined through ``jax.distributed.initialize``
 into one 8-device global mesh.  Each process steps its shard of a batched
 ANM6Easy fleet (data is process-local: ``jax.make_array_from_process_local_data``)
 and the cross-process mean reward is produced by an XLA collective over the
-process boundary -- the same program shape as a real multi-host TPU pod
+process boundary -- the same program shape as a real multi-host deployment
 (SURVEY.md §4: multi-host behavior via jax.distributed simulation).
 
 Usage (coordinator spawns the workers):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Microbenchmark of exact-projection variants on the real TPU.
+"""Microbenchmark of the exact set-point projection on the default device.
 
-The polytope projection is the dominant per-step cost of the batched env
-(measured ~400 us/step at B=4096 on ANM6 -- more than the 10-iteration NR
-solve).  This script times lane-major variants over a 64-step scan so the
-winner can be wired into core/transition.py.
+Times :func:`gym_anm_tpu.ops.projection.project_polytope_lanes` (the one
+projection form the transition runs) over a 64-step scan at ANM6's device
+polytopes, so a change to it can be measured apart from the rest of the
+step.  A GPU run reports device time; a CPU run only checks that it runs.
 
 Usage: python -u scripts/proj_bench.py [--batch 4096] [--steps 64]
 """
@@ -21,83 +21,6 @@ import jax
 import jax.numpy as jnp
 
 
-def variant_runmin(px, py, G, h):
-    from gym_anm_tpu.ops.projection import project_polytope_lanes
-
-    return project_polytope_lanes(px, py, G, h)
-
-
-def variant_stacked(px, py, G, h):
-    from gym_anm_tpu.ops.projection import project_polytope_lanes_stacked
-
-    return project_polytope_lanes_stacked(px, py, G, h)
-
-
-def variant_concat(px, py, G, h, eps=1e-5):
-    """Candidates stacked on the sublane axis as one [K*C, B] 2-D array."""
-    G = np.asarray(G)
-    C, m, _ = G.shape
-    B = px.shape[1]
-
-    g_finite = np.all(np.isfinite(G), axis=-1)
-    g_nonzero = (np.abs(G).sum(axis=-1) > 0) & g_finite
-    h_rows = [h[:, r] for r in range(m)]
-    h_fin = [jnp.isfinite(h_rows[r]) for r in range(m)]
-    tol = [eps * (1.0 + jnp.where(h_fin[r], jnp.abs(h_rows[r]), 0.0)) for r in range(m)]
-
-    cx, cy, cval = [px], [py], [None]
-    for r in range(m):
-        if not g_nonzero[:, r].any():
-            continue
-        gxc, gyc = G[:, r, 0][:, None], G[:, r, 1][:, None]
-        gg = (G[:, r, 0] ** 2 + G[:, r, 1] ** 2)[:, None]
-        coef = (gxc * px + gyc * py - h_rows[r]) / np.where(gg > 0, gg, 1.0)
-        cx.append(px - coef * gxc)
-        cy.append(py - coef * gyc)
-        cval.append(jnp.asarray(g_nonzero[:, r][:, None]) & h_fin[r])
-    for r in range(m):
-        for s in range(r + 1, m):
-            det = G[:, r, 0] * G[:, s, 1] - G[:, r, 1] * G[:, s, 0]
-            nrm = np.sqrt(np.maximum((G[:, r] ** 2).sum(-1) * (G[:, s] ** 2).sum(-1), 0.0))
-            det_ok = np.isfinite(det) & (np.abs(det) > eps * np.maximum(1.0, nrm))
-            if not det_ok.any():
-                continue
-            sd = np.where(det_ok, det, 1.0)[:, None]
-            hr, hs = h_rows[r], h_rows[s]
-            cx.append((hr * G[:, s, 1][:, None] - hs * G[:, r, 1][:, None]) / sd)
-            cy.append((G[:, r, 0][:, None] * hs - G[:, s, 0][:, None] * hr) / sd)
-            cval.append(jnp.asarray(det_ok[:, None]) & h_fin[r] & h_fin[s])
-    K = len(cx)
-    CX = jnp.concatenate(cx, axis=0)  # [K*C, B], K-major
-    CY = jnp.concatenate(cy, axis=0)
-
-    feas = jnp.ones((K * C, B), dtype=bool)
-    for r in range(m):
-        if not g_finite[:, r].any():
-            continue
-        gxt = jnp.asarray(np.tile(G[:, r, 0], K)[:, None].astype(np.float32))
-        gyt = jnp.asarray(np.tile(G[:, r, 1], K)[:, None].astype(np.float32))
-        hrt = jnp.tile(h_rows[r] + tol[r], (K, 1))
-        row_ok = gxt * CX + gyt * CY <= hrt
-        mask = jnp.tile(jnp.asarray(g_finite[:, r][:, None]) & h_fin[r], (K, 1))
-        feas = feas & (row_ok | ~mask)
-
-    valid = feas & jnp.isfinite(CX) & jnp.isfinite(CY)
-    extra = jnp.concatenate(
-        [jnp.ones_like(px, bool) if v is None else v for v in cval], axis=0
-    )
-    valid = valid & extra
-
-    pxt = jnp.tile(px, (K, 1))
-    pyt = jnp.tile(py, (K, 1))
-    d2 = (CX - pxt) ** 2 + (CY - pyt) ** 2
-    score = jnp.where(valid, d2, jnp.inf).reshape(K, C, B)
-    best = jnp.argmin(score, axis=0)  # [C, B]
-    bx = jnp.take_along_axis(CX.reshape(K, C, B), best[None], axis=0)[0]
-    by = jnp.take_along_axis(CY.reshape(K, C, B), best[None], axis=0)[0]
-    return bx, by
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=4096)
@@ -105,9 +28,13 @@ def main():
     ap.add_argument("--iters", type=int, default=7)
     args = ap.parse_args()
 
+    from gym_anm_tpu import runtime
     from gym_anm_tpu.core.grid import build_grid
     from gym_anm_tpu.envs.anm6.network import network
+    from gym_anm_tpu.ops.projection import project_polytope_lanes
 
+    device = runtime.require_gpu()
+    runtime.enable_compile_cache()
     spec, _ = build_grid(network, 0.25, 100, dtype=np.float32)
     G = np.concatenate([np.asarray(spec.gen_G), np.asarray(spec.des_G)], axis=0)
     C, m, _ = G.shape
@@ -121,42 +48,23 @@ def main():
     h_np[:, 9, :] = rng.uniform(-0.1, 0.5, (C, B))
     h = jnp.asarray(h_np)
 
-    def variant_box_slants(px, py, G, h):
-        from gym_anm_tpu.ops.projection import project_box_slants_lanes
+    def run(px, py, h):
+        def body(c, _):
+            x, y = project_polytope_lanes(c[0], c[1], G, h)
+            return (x * 0.99 + 0.01 * px, y * 0.99 + 0.01 * py), None
 
-        return project_box_slants_lanes(px, py, G, h)
+        (x, y), _ = jax.lax.scan(body, (px, py), None, length=args.steps)
+        return x, y
 
-    variants = {
-        "running-min": variant_runmin,
-        "stacked-3d": variant_stacked,
-        "concat-2d": variant_concat,
-        "box-slants": variant_box_slants,
-    }
-    ref = None
-    for name, fn in variants.items():
-        def run(px, py, h, fn=fn):
-            def body(c, _):
-                x, y = fn(c[0], c[1], G, h)
-                return (x * 0.99 + 0.01 * px, y * 0.99 + 0.01 * py), None
-            (x, y), _ = jax.lax.scan(body, (px, py), None, length=args.steps)
-            return x, y
-
-        jf = jax.jit(run)
-        x, y = jf(px, py, h)
-        jax.block_until_ready(x)
-        if ref is None:
-            ref = (np.asarray(x), np.asarray(y))
-        else:
-            dx = np.max(np.abs(np.asarray(x) - ref[0]))
-            print(f"  ({name} vs running-min: max diff {dx:.2e})")
-        ts = []
-        for _ in range(args.iters):
-            t0 = time.time()
-            x, y = jf(px, py, h)
-            jax.block_until_ready(x)
-            ts.append(time.time() - t0)
-        med = sorted(ts)[len(ts) // 2]
-        print(f"{name:12s}: {med*1e3:8.2f} ms/call  ({med/args.steps*1e6:7.1f} us/step)")
+    jf = jax.jit(run)
+    jax.block_until_ready(jf(px, py, h))
+    ts = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        jax.block_until_ready(jf(px, py, h))
+        ts.append(time.perf_counter() - t0)
+    med = sorted(ts)[len(ts) // 2]
+    print(f"{device['kind']}: {med * 1e3:.3f} ms/call ({med / args.steps * 1e6:.2f} us/step) at B={B}")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 """Weak-scaling benchmark over a device mesh.
 
 Shards the environment batch over 1..N devices (batch grows with the mesh)
-and reports throughput + parallel efficiency. With only one physical TPU
-chip available, run on a virtual host mesh for the scaling *shape*:
+and reports throughput + parallel efficiency. On a host without several
+accelerators, run on a virtual host mesh for the scaling *shape*:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python scripts/scaling_bench.py --platform cpu

@@ -10,8 +10,8 @@ distribution.  The warm p100 (+margin) becomes the env's calibrated
 *fixed* masked budget, so the win from warm starting is realized exactly by
 lowering that budget).
 
-Run on CPU (default; the solver math is backend-independent) or on the
-chip.  Example:
+Run on CPU (default; the solver math is backend-independent) or, with
+``--device``, on the default JAX device.  Example:
 
     python scripts/warm_calib.py --env anm6easy --batch 512 --steps 256
 """
@@ -30,13 +30,13 @@ def main():
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--budget", type=int, default=40, help="generous solve budget for measurement")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tpu", action="store_true", help="run on the default backend instead of CPU")
+    ap.add_argument("--device", action="store_true", help="run on the default backend instead of CPU")
     ap.add_argument("--f64", action="store_true")
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
     if args.f64:
         jax.config.update("jax_enable_x64", True)

@@ -1,18 +1,27 @@
 """Test configuration.
 
 Tests run on CPU (deterministic, x64-capable) with 8 virtual devices so the
-multi-chip sharding paths can be exercised without TPU hardware.  The real
-TPU path is exercised by ``bench.py``.
+multi-device sharding paths can be exercised without accelerators.  Tests
+marked ``gpu`` need an NVIDIA GPU and skip elsewhere; run them on the card
+with ``JAX_PLATFORMS=cuda,cpu python -m pytest -m gpu tests/`` (any
+``JAX_PLATFORMS`` the caller sets is kept).  ``chip_smoke.py`` and
+``bench.py`` exercise the GPU path end to end.
 """
 
 import os
 import sys
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+# One BLAS thread per test process: the suite runs in several worker
+# processes, and multi-threaded OpenBLAS in each spin-waits against the
+# others -- a dense 280x280 batched LAPACK solve went from 8 s alone to
+# over 400 s with six workers, and to 15 s with one thread each.
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+if not os.environ.get("JAX_PLATFORMS"):
+    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,6 +44,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: >60s integration test (deselected by default; --runslow or GYM_ANM_TPU_SLOW=1)"
     )
+    config.addinivalue_line("markers", "gpu: needs an NVIDIA GPU (skips elsewhere; see the module docstring)")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -44,6 +54,15 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         if "slow" in item.keywords:
             item.add_marker(skip)
+
+
+@pytest.fixture
+def gpu():
+    """The GPU device; skips the test when JAX has none.  Decided here, at
+    run time, never while test modules are imported."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU: JAX_PLATFORMS=cuda,cpu python -m pytest -m gpu tests/")
+    return jax.devices()[0]
 
 
 @pytest.fixture(scope="session")

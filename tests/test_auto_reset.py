@@ -6,7 +6,7 @@ step (never the absorbing zero state, never a diverged sim state).  The
 default ``auto_reset_mode="pool"`` samples one batch of fresh states per
 rollout segment and terminated lanes draw from it via a rotated gather --
 one reset-transition per segment instead of per step (the training-loop
-throughput fix; VERDICT round 2 item 2).
+throughput fix).
 """
 
 import numpy as np

@@ -26,7 +26,7 @@ from gym_anm_tpu.errors import (
     LoadSpecError,
     StorageSpecError,
 )
-from gym_anm_tpu.ops.projection import project_polytope
+from gym_anm_tpu.ops.projection import project_polytope_lanes
 
 BUS_IDS = [0, 1, 2]
 BASE = 10
@@ -232,6 +232,14 @@ def test_storage_errors(row):
 # ---------------------------------------------------------------------------
 # map_pq (exact projection) -- ported reference vectors
 # ---------------------------------------------------------------------------
+def project_polytope(point, G, h):
+    """One point through the lane-major projection (one device, one lane)."""
+    G = np.asarray(G, np.float64)
+    h = jnp.asarray(h, jnp.float64)
+    x, y = project_polytope_lanes(point[None, None, 0], point[None, None, 1], G[None], h[None, :, None])
+    return jnp.stack([x[0, 0], y[0, 0]])
+
+
 def _gen_map_pq(row, p, q, p_pot):
     d = parse_generator(row, BUS_IDS, BASE)
     G, h = _device_polytope(d)

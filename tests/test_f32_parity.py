@@ -1,4 +1,4 @@
-"""float32 (TPU dtype) vs float64 trajectory tolerance.
+"""float32 (the accelerator dtype) vs float64 trajectory tolerance.
 
 BASELINE.md: trajectories must match the reference bit-level in float64 and
 tolerance-matched in float32.  Here the same action sequence drives an f32

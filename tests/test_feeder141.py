@@ -4,7 +4,8 @@ import numpy as np
 import jax
 import pytest
 
-from gym_anm_tpu.envs.feeder141 import Feeder141Env, make_core, make_multi_feeder_network
+from gym_anm_tpu.envs import Feeder141Env
+from gym_anm_tpu.envs.feeder141 import make_core, make_multi_feeder_network
 
 
 def test_network_well_formed():
@@ -76,13 +77,12 @@ def test_chord_only_matches_pure_nr():
 
 
 def test_chord_precision_default_resolution():
-    """The chord-dominated default solve opts into bf16 update products
-    (validated on-chip: +30% at identical parity, RESULTS.md round 2);
+    """The chord-only solve opts into default-precision update products;
     explicit overrides and non-chord methods are untouched."""
     from gym_anm_tpu.envs.feeder141 import make_core
 
-    # The env default is the tree kernel since round 5 (no chord phase);
-    # the chord-only ablation mode still auto-selects bf16 products.
+    # The env default is the tree solver (no chord phase); the chord-only
+    # mode auto-selects default-precision products.
     assert make_core().chord_precision is None
     assert make_core(pf_method="hybrid").chord_precision == "default"
     assert make_core(pf_method="hybrid", chord_precision="highest").chord_precision == "highest"

@@ -4,7 +4,8 @@ import numpy as np
 import jax
 import pytest
 
-from gym_anm_tpu.envs.feeder33 import Feeder33Env, make_core, make_feeder_network
+from gym_anm_tpu.envs import Feeder33Env
+from gym_anm_tpu.envs.feeder33 import make_core, make_feeder_network
 
 
 def test_network_well_formed():
@@ -51,14 +52,16 @@ def test_batched_feeder_rollout():
 
 
 def test_xla_hybrid_matches_hybrid():
-    """pf_method="xla_hybrid" (the chord solver pinned to the XLA/MXU path)
-    is the same solver as "hybrid" wherever both run on XLA -- identical
-    states and termination decisions."""
+    """The chord solver has one name, "hybrid" (the former "xla_hybrid"
+    alias is rejected), and its default chord precision is the explicit
+    "highest" -- identical states and termination decisions."""
     import jax.numpy as jnp
     import jax.random as jr
 
     a = make_core(pf_method="hybrid")
-    b = make_core(pf_method="xla_hybrid")
+    b = make_core(pf_method="hybrid", chord_precision="highest")
+    with pytest.raises(ValueError, match="pf_method"):
+        make_core(pf_method="xla_hybrid").env_state_from_s0(jnp.zeros((1, a.expected_s0_n)))
     keys = jr.split(jr.PRNGKey(5), 16)
     ea = jax.jit(lambda ks: a.env_state_from_s0(jax.vmap(a.init_state_fn)(ks)))(keys)
     eb = jax.jit(lambda ks: b.env_state_from_s0(jax.vmap(b.init_state_fn)(ks)))(keys)

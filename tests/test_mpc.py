@@ -200,7 +200,7 @@ def test_mpc_on_feeder33():
     """The agent generalizes to other networks: on the 33-bus feeder the
     DC-OPF stays feasible and keeps the grid alive (no collapse) for a
     short controlled episode."""
-    from gym_anm_tpu.envs.feeder33 import Feeder33Env
+    from gym_anm_tpu.envs import Feeder33Env
 
     env = Feeder33Env(seed=3)
     env.reset(seed=3)

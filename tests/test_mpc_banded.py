@@ -66,7 +66,7 @@ def test_banded_feeder33():
     1e-2, objectives to 1e-3) and keeps the feeder alive."""
     from scipy.optimize import linprog
 
-    from gym_anm_tpu.envs.feeder33 import Feeder33Env
+    from gym_anm_tpu.envs import Feeder33Env
 
     env = Feeder33Env(seed=3)
     env.reset(seed=3)
@@ -103,7 +103,7 @@ def test_banded_feeder141_horizon5():
     """The dense assembly is infeasible here (S=455/stage); the banded
     backend plans at horizon 5 on the 141-bus network, its solution is
     feasible to ADMM tolerance, and the grid survives under its control."""
-    from gym_anm_tpu.envs.feeder141 import Feeder141Env
+    from gym_anm_tpu.envs import Feeder141Env
 
     env = Feeder141Env()
     env.reset(seed=7)
@@ -134,7 +134,7 @@ def test_banded_feeder141_horizon20():
     from scipy.optimize import linprog
     from scipy import sparse
 
-    from gym_anm_tpu.envs.feeder141 import Feeder141Env
+    from gym_anm_tpu.envs import Feeder141Env
 
     env = Feeder141Env()
     env.reset(seed=11)
@@ -251,7 +251,8 @@ def test_banded_sparse_polish_batch_feeder141():
     from scipy import sparse
     from scipy.optimize import linprog
 
-    from gym_anm_tpu.envs.feeder141 import Feeder141Env, make_core
+    from gym_anm_tpu.envs import Feeder141Env
+    from gym_anm_tpu.envs.feeder141 import make_core
     from gym_anm_tpu.envs.batched import BatchedEnv
 
     host = Feeder141Env()
@@ -305,7 +306,7 @@ def test_sparse_polish_recovers_exact_optimum_from_f32_seed():
     """
     import os
 
-    from gym_anm_tpu.envs.feeder141 import Feeder141Env
+    from gym_anm_tpu.envs import Feeder141Env
 
     data = np.load(os.path.join(os.path.dirname(__file__), "data", "polish_calib_feeder141.npz"))
     env = Feeder141Env()

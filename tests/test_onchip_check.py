@@ -1,8 +1,8 @@
-"""The on-chip trajectory-parity harness (gym_anm_tpu/check.py), validated
-on CPU: in float64 the committed references must reproduce exactly (they
-were generated by this very path), and in float32 -- the production TPU
-dtype -- every solver path must pass the calibrated tolerances.  The real
-TPU run of the same harness is ``bench.py --check``.
+"""The on-device trajectory-parity harness (gym_anm_tpu/check.py),
+validated on CPU: in float64 the committed references must reproduce
+exactly (they were generated by this very path), and in float32 -- the
+production accelerator dtype -- every solver path must pass the calibrated
+tolerances.  The GPU run of the same harness is ``bench.py --check``.
 """
 
 import numpy as np
@@ -20,7 +20,7 @@ def test_reference_artifacts_committed():
         cfg = check.CHECK_CONFIG[env_name]
         assert data["state_vec"].shape[:2] == (cfg["T"], cfg["B"])
         assert data["terminated"].dtype == bool
-        # The termination signal must discriminate (VERDICT r1: the
+        # The termination signal must discriminate (unlike the
         # throughput loop's 0.998 saturated signal); feeder141 is
         # feasible-by-construction so 0 is expected there.
         frac = float(data["terminated"][-1].mean())

@@ -190,27 +190,3 @@ def test_hybrid_matches_scan_nr():
     # Converged lanes satisfy the mismatch criterion exactly as NR does:
     # both paths stop at the shared x_tol, so solutions can only differ
     # below that tolerance.
-
-
-def test_hybrid_pallas_kernel_matches_xla_hybrid():
-    """The fused kernel's chord phase matches the XLA hybrid path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gym_anm_tpu.envs.anm6.network import network as anm6_net
-    from gym_anm_tpu.ops.pallas_nr import solve_pfe_pallas
-
-    spec, _ = build_grid(anm6_net, 0.25, 100, dtype=np.float32)
-    rng = np.random.default_rng(12)
-    B = 256
-    p = jnp.asarray(rng.uniform(-0.3, 0.3, (B, 5)).astype(np.float32))
-    q = jnp.asarray(rng.uniform(-0.2, 0.2, (B, 5)).astype(np.float32))
-    vr_s, vi_s, _, _, c_s = solve_pfe(
-        spec.Y_re, spec.Y_im, p, q, max_iter=6, method="hybrid", chord_iters=16
-    )
-    with pltpu.force_tpu_interpret_mode():
-        vr_p, vi_p, _, _, c_p = solve_pfe_pallas(
-            spec.Y_re, spec.Y_im, p, q, max_iter=6, tile=128, chord_iters=16
-        )
-    np.testing.assert_array_equal(np.asarray(c_s), np.asarray(c_p))
-    np.testing.assert_allclose(np.asarray(vr_p), np.asarray(vr_s), atol=3e-5)
-    np.testing.assert_allclose(np.asarray(vi_p), np.asarray(vi_s), atol=3e-5)

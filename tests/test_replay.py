@@ -5,7 +5,7 @@ import re
 
 import numpy as np
 
-from gym_anm_tpu.envs.anm6.anm6_easy import ANM6Easy
+from gym_anm_tpu.envs import ANM6Easy
 import pytest
 
 
@@ -57,10 +57,10 @@ def test_replay_requires_recording():
 
 @pytest.mark.slow
 def test_feeder_envs_render_replay(tmp_path):
-    """Rendering is generic over topologies (VERDICT r1 item 4): the 33- and
+    """Rendering is generic over topologies: the 33- and
     141-bus feeders record and write working replay artifacts too."""
-    from gym_anm_tpu.envs.feeder33 import Feeder33Env
-    from gym_anm_tpu.envs.feeder141 import Feeder141Env
+    from gym_anm_tpu.envs import Feeder33Env
+    from gym_anm_tpu.envs import Feeder141Env
 
     for cls, n_bus in ((Feeder33Env, 33), (Feeder141Env, 141)):
         env = cls()
@@ -91,7 +91,7 @@ def test_feeder_env_live_render_smoke():
     (headless: no browser opens) and close() tears them down."""
     from unittest import mock
 
-    from gym_anm_tpu.envs.feeder33 import Feeder33Env
+    from gym_anm_tpu.envs import Feeder33Env
 
     env = Feeder33Env()
     env.reset(seed=0)

@@ -1,4 +1,4 @@
-"""Enforced scaling checks (VERDICT round 2 item 6).
+"""Enforced scaling checks.
 
 The multi-device story is pure data parallelism over a 1-D ``env`` mesh
 (parallel/sharding.py): env stepping is embarrassingly parallel, so weak
